@@ -1,0 +1,90 @@
+"""Rehearsal of chip_smoke.py's control flow on the CPU at 16 envs.
+
+The script's phases are imported and run on a small full-task env (2x2
+terrain) through the plain path: the kernel-vs-plain comparison (here the
+plain version against itself), the rollout, the bound computed from the
+inputs, and the shape of the result lines.  The device and build phases need
+a card and are not run here.
+"""
+import json
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+import chip_smoke  # noqa: E402
+
+
+def test_phases_run_on_cpu():
+    env, policy, state, obs = chip_smoke.make_env(16, "cpu", terrain_rows=2, settle_steps=3)
+    assert not env.use_kernel_path          # CPU envs take the per-substep loop
+    assert chip_smoke.phase_compare(env, state, obs, policy) == 0.0
+    state, obs, launches, stats = chip_smoke.phase_rollout(env, policy, state, obs, steps=2)
+    assert launches == 0                    # the plain version never counts
+    assert stats["env_steps_per_s"] > 0 and 0.0 <= stats["reset_share"] <= 1.0
+    assert bool(torch.isfinite(state.phys.qpos).all())
+    bound_ms, bound_by, nbytes, ops = chip_smoke.kernel_bound(
+        env, chip_smoke.decimation_inputs(env, state, obs, policy))
+    # 878 input and 518 output float32 rows per env
+    assert nbytes == 4 * 16 * (878 + 518)
+    assert ops > 0 and bound_by in ("bytes", "operations") and bound_ms > 0
+
+
+def test_result_lines():
+    lines = chip_smoke.result_lines("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100 80GB HBM3", 1,
+                                    24, 1e-3, 2.0, 1900.0, 0.0128, "operations")
+    kernels = json.loads(lines[0])["kernels"]
+    assert set(kernels[0]) == {"name", "route", "source", "replaces", "launches", "max_abs_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert os.path.exists(os.path.join(chip_smoke.ROOT, kernels[0]["source"]))
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+
+
+def test_play_entry_point_and_vec_env_on_cpu():
+    """The headless play CLI and the VecEnv facade at 4 envs on the CPU."""
+    from ti5_isaacgym_tpu_torch.envs.vec_env import VecEnv
+    from ti5_isaacgym_tpu_torch.scripts import play
+
+    state, stats = play.play(play.get_play_args(
+        ["--num_envs", "4", "--steps", "2", "--random_policy", "--device", "cpu"]))
+    assert bool(torch.isfinite(state.phys.base_pos).all()) and stats["env_steps_per_s"] > 0
+    env = play.T1DHStandEnv(play.make_env_cfg(4), seed=0, device="cpu")
+    venv = VecEnv(env, seed=0)
+    obs, priv = venv.reset()
+    assert obs.shape == (4, venv.num_obs) and priv.shape == (4, venv.num_privileged_obs)
+    obs, priv, rew, done, extras = venv.step(torch.zeros(4, venv.num_actions))
+    assert rew.shape == (4,) and done.dtype == torch.bool and "done_count" in extras
+
+
+def test_events_and_heading_paths_run_on_cpu():
+    """Pushes, external forces (both triggered often) and the heading command
+    mode, on both CPU decimation paths: finite states, the events fire, and
+    the heading mode rewrites the yaw-rate command."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.scripts import play
+
+    base = play.make_env_cfg(8, full_task=True)
+    for kernel_path in (False, True):
+        cfg = dataclasses.replace(
+            base,
+            terrain=dataclasses.replace(base.terrain, num_rows=2, num_cols=2, border_size=2.0),
+            sim=dataclasses.replace(base.sim, megakernel_interpret=kernel_path),
+            commands=dataclasses.replace(base.commands, heading_command=True),
+            domain_rand=dataclasses.replace(
+                base.domain_rand, push_robots=True, push_interval_s=0.03, update_step=24,
+                push_duration=(0.02,), ext_force_interval_s=0.03, add_update_step=24,
+                add_duration=(0.02,)))
+        env = play.T1DHStandEnv(cfg, seed=0, device="cpu")
+        assert env.use_kernel_path == kernel_path
+        state, obs, _ = env.reset(env.init_state(0))
+        pushed = applied = False
+        for _ in range(4):
+            state, obs, _, rew, _, _ = env.step(state, torch.zeros(8, 12))
+            pushed |= bool((state.push_force != 0).any())
+            applied |= bool((state.ext_force != 0).any())   # applied only when standing
+            assert bool(torch.isfinite(state.phys.qvel).all()) and bool(torch.isfinite(rew).all())
+        assert pushed and applied
+        assert bool((state.commands[:, 2].abs() <= 1.0).all())
