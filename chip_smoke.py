@@ -11,14 +11,20 @@ printing one line with its elapsed seconds:
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: ``nvcc`` of ``csrc/decimation.cu`` into ``build/ti5_torch_kernels``
    (seconds, ptxas registers and spills);
-3. kernel against its plain version on one decimation's real inputs at 4096
-   envs, with Coulomb friction and torque noise off and on (the same noise
-   rows fed to both), every output within its stated tolerance;
+3. kernel against its plain version on one decimation's real inputs, with
+   Coulomb friction and torque noise off and on (the same noise rows fed to
+   both), every output within its stated tolerance, in three cases: all 4096
+   envs; the first 4095 (the last block partly empty); all 4096 with an
+   external wrench drawn from a numpy seed (after settling the env's own
+   wrench is mostly zero);
 4. rollout: 24 policy steps of the round-5 walking policy
    (``eval_round5/final/exported/policy_dh.npz``) through the play loop,
    exactly 24 kernel launches, finite states, observations and rewards;
-5. times: the kernel (CUDA events, mean of 50 warm launches), the plain
-   version (one launch) and the kernel's bound.
+5. times: the kernel at 4096 envs and at 8192 (the 4096 inputs tiled along
+   N), each the mean of 50 warm launches on CUDA events with the host ahead
+   of the device (a ``torch.cuda._sleep`` enqueued first), beside the host's
+   enqueue time per launch; the plain version (one launch) and the kernel's
+   bound.
 
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -43,6 +49,12 @@ NUM_ENVS = 4096
 STEPS = 24
 SETTLE_STEPS = 30      # policy steps after reset so the feet are on the ground
 SEED = 5
+# external wrench of the third comparison case: uniform within the task's
+# push limits (configs/t1_dh_stand.py ext_force_max_x/y/z) and +-20 Nm
+EXTW_MAX = (600.0, 400.0, 5.0, 20.0, 20.0, 20.0)
+# device cycles enqueued before the timed launches (~50 ms at 1.98 GHz), far
+# longer than the host needs to enqueue them
+SLEEP_CYCLES = 100_000_000
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor float32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -122,39 +134,67 @@ def decimation_inputs(env, state, obs, policy):
     return inputs
 
 
-def phase_compare(env, state, obs, policy):
-    """The kernel (``run_decimation`` on the env's device) against
-    ``run_decimation_plain`` on one decimation's inputs, flags off and on."""
+def compare(env, inputs, flags: bool, label: str) -> float:
+    """``run_decimation`` on the env's device against ``run_decimation_plain``
+    on the same inputs; raises if an output is not finite or out of its
+    tolerance, else returns the largest gap."""
     import torch
 
     from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation, run_decimation_plain
 
+    args = dict(env.decimation_args(), use_coulomb=flags, use_noise=flags)
+    got = run_decimation(**args, **inputs)
+    if env.device.type == "cuda":
+        torch.cuda.synchronize(env.device)
+    want = run_decimation_plain(**args, **inputs)
+    worst, gaps, same, total = 0.0, [], 0, 0
+    for name, g, w in zip(OUTPUTS, got, want):
+        same += int((g == w).sum())
+        total += g.numel()
+        atol, rtol = TOLERANCES[name]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"kernel output {name} is not finite ({label}, flags {flags})")
+        err = (g - w).abs()
+        over = err - (atol + rtol * w.abs())
+        gap = float(err.max())
+        worst = max(worst, gap)
+        gaps.append(f"{name} {gap:.3g}")
+        if float(over.max()) > 0:
+            raise AssertionError(f"kernel output {name} differs from the plain version by "
+                                 f"{gap:.3g} (atol {atol}, rtol {rtol}; {label}, flags {flags})")
+    feet = list(env.model.feet_bodies)
+    fz = want[2].reshape(env.model.nb, 3, -1)[feet, 2]
+    in_contact = float((fz > 5.0).any(dim=0).float().mean())
+    log(f"compare {label}, coulomb/noise={'on' if flags else 'off'} ({in_contact:.0%} of envs "
+        f"with a foot in contact; {same / total:.4%} of output values bit-equal): "
+        f"max |kernel - plain|: " + ", ".join(gaps))
+    return worst
+
+
+def compare_cases(env, inputs) -> list:
+    """(label, inputs) of the comparison cases: all envs, all but the last
+    (a ragged env count), all envs with a seeded nonzero external wrench."""
+    import numpy as np
+    import torch
+
+    n = int(inputs["state_rows"].shape[1])
+    rng = np.random.default_rng(SEED)
+    lim = np.asarray(EXTW_MAX, np.float32)[:, None]
+    extw = torch.as_tensor(rng.uniform(-1.0, 1.0, size=(6, n)).astype(np.float32) * lim,
+                           device=inputs["extw_rows"].device)
+    return [(f"{n} envs", inputs),
+            (f"first {n - 1} envs", {k: v[:, :n - 1].contiguous() for k, v in inputs.items()}),
+            (f"{n} envs, external wrench", dict(inputs, extw_rows=extw))]
+
+
+def phase_compare(env, state, obs, policy):
+    """The kernel against its plain version in every case of
+    :func:`compare_cases`, flags off and on; returns the largest gap."""
     inputs = decimation_inputs(env, state, obs, policy)
     worst = 0.0
-    for flags in (False, True):
-        args = dict(env.decimation_args(), use_coulomb=flags, use_noise=flags)
-        got = run_decimation(**args, **inputs)
-        if env.device.type == "cuda":
-            torch.cuda.synchronize(env.device)
-        want = run_decimation_plain(**args, **inputs)
-        gaps = []
-        for name, g, w in zip(OUTPUTS, got, want):
-            atol, rtol = TOLERANCES[name]
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"kernel output {name} is not finite (flags {flags})")
-            err = (g - w).abs()
-            over = err - (atol + rtol * w.abs())
-            gap = float(err.max())
-            worst = max(worst, gap)
-            gaps.append(f"{name} {gap:.3g}")
-            if float(over.max()) > 0:
-                raise AssertionError(f"kernel output {name} differs from the plain version by "
-                                     f"{gap:.3g} (atol {atol}, rtol {rtol}; flags {flags})")
-        feet = list(env.model.feet_bodies)
-        fz = want[2].reshape(env.model.nb, 3, -1)[feet, 2]
-        in_contact = float((fz > 5.0).any(dim=0).float().mean())
-        log(f"compare coulomb/noise={'on' if flags else 'off'} ({in_contact:.0%} of envs with "
-            f"a foot in contact): max |kernel - plain|: " + ", ".join(gaps))
+    for label, case in compare_cases(env, inputs):
+        for flags in (False, True):
+            worst = max(worst, compare(env, case, flags, label))
     return worst
 
 
@@ -200,32 +240,60 @@ def kernel_bound(env, inputs):
             nbytes, ops)
 
 
-def phase_times(env, state, obs, policy, reps: int = 50):
+def time_kernel(args, inputs, reps: int = 50):
+    """(device ms per launch, host enqueue us per launch, host ahead): the
+    mean of ``reps`` warm launches on CUDA events, a ``torch.cuda._sleep``
+    enqueued first so the host has enqueued them all before the device
+    reaches them (checked: the sleep is still running when the host is
+    done)."""
     import torch
 
-    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation, run_decimation_plain
+    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation
 
-    inputs = decimation_inputs(env, state, obs, policy)
-    args = env.decimation_args()
     for _ in range(3):
         run_decimation(**args, **inputs)
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
+    h0 = time.perf_counter()
     for _ in range(reps):
         run_decimation(**args, **inputs)
+    host_us = (time.perf_counter() - h0) / reps * 1e6
+    ahead = not t0.query()
     t1.record()
     torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / reps, host_us, ahead
+
+
+def phase_times(env, state, obs, policy, reps: int = 50):
+    import torch
+
+    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation_plain
+
+    inputs = decimation_inputs(env, state, obs, policy)
+    args = env.decimation_args()
+    ms, host_us, ahead = time_kernel(args, inputs, reps)
+    wide = {k: torch.cat([v, v], dim=1).contiguous() for k, v in inputs.items()}
+    ms_wide, host_us_wide, ahead_wide = time_kernel(args, wide, reps)
+    del wide
+    if not (ahead and ahead_wide):
+        raise AssertionError("the host fell behind the device while enqueueing the timed "
+                             "launches: the times would be the host's")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0.record()
     run_decimation_plain(**args, **inputs)
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
     bound_ms, bound_by, nbytes, ops = kernel_bound(env, inputs)
-    log(f"times: kernel {ms:.4f} ms (mean of {reps}), plain {plain_ms:.2f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} float32 ops), library: none")
-    return ms, plain_ms, bound_ms, bound_by
+    n = env.num_envs
+    log(f"times: kernel {ms:.4f} ms at {n} envs, {ms_wide:.4f} ms at {2 * n} envs (mean of "
+        f"{reps}; host enqueue {host_us:.1f} / {host_us_wide:.1f} us per launch, host ahead), "
+        f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} "
+        f"float32 ops; {2 * bound_ms:.5f} ms at {2 * n} envs), library: none")
+    return dict(ms=ms, ms_wide=ms_wide, host_us=host_us, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main():
@@ -239,23 +307,23 @@ def main():
     if launches != STEPS:
         raise AssertionError(f"main path launched the decimation kernel {launches} times, "
                              f"expected {STEPS}")
-    ms, plain_ms, bound_ms, bound_by = phase_times(env, state, obs, policy)
+    times = phase_times(env, state, obs, policy)
     torch.cuda.synchronize()
     log(f"done: build {build['seconds']:.1f} s, {stats['env_steps_per_s']:.1f} env-steps/s "
         f"on {smi}")
-    for line in result_lines(smi, name, torch.cuda.device_count(), launches, worst, ms,
-                             plain_ms, bound_ms, bound_by):
+    for line in result_lines(smi, name, torch.cuda.device_count(), launches, worst, times):
         print(line, flush=True)
 
 
-def result_lines(smi, name, count, launches, worst, ms, plain_ms, bound_ms, bound_by):
+def result_lines(smi, name, count, launches, worst, times):
     """The last three lines: the kernels' JSON, the nvidia-smi line, the
-    contract's result line."""
+    contract's result line.  ``ms`` is at NUM_ENVS envs, ``ms_8192_envs`` at
+    twice that."""
     kernels = {"kernels": [{
         "name": "run_decimation", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}
+        "replaces": REPLACES, "launches": launches, "max_abs_err": worst, "ms": times["ms"],
+        f"ms_{2 * NUM_ENVS}_envs": times["ms_wide"], "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"], "library_ms": None}]}
     return [json.dumps(kernels), smi,
             json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})]
 

@@ -20,6 +20,13 @@ def test_phases_run_on_cpu():
     env, policy, state, obs = chip_smoke.make_env(16, "cpu", terrain_rows=2, settle_steps=3)
     assert not env.use_kernel_path          # CPU envs take the per-substep loop
     assert chip_smoke.phase_compare(env, state, obs, policy) == 0.0
+    inputs = chip_smoke.decimation_inputs(env, state, obs, policy)
+    cases = chip_smoke.compare_cases(env, inputs)
+    assert [tuple(c["state_rows"].shape) for _, c in cases] == [(37, 16), (37, 15), (37, 16)]
+    assert all(c["lagged_rows"].is_contiguous() for _, c in cases)
+    extw = cases[2][1]["extw_rows"]
+    assert bool((extw.abs() > 0).all())
+    assert bool((extw.abs() <= torch.tensor(chip_smoke.EXTW_MAX)[:, None]).all())
     state, obs, launches, stats = chip_smoke.phase_rollout(env, policy, state, obs, steps=2)
     assert launches == 0                    # the plain version never counts
     assert stats["env_steps_per_s"] > 0 and 0.0 <= stats["reset_share"] <= 1.0
@@ -32,11 +39,15 @@ def test_phases_run_on_cpu():
 
 
 def test_result_lines():
+    times = dict(ms=0.2, ms_wide=0.35, host_us=60.0, plain_ms=1900.0, bound_ms=0.0128,
+                 bound_by="operations")
     lines = chip_smoke.result_lines("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100 80GB HBM3", 1,
-                                    24, 1e-3, 2.0, 1900.0, 0.0128, "operations")
+                                    24, 1e-3, times)
     kernels = json.loads(lines[0])["kernels"]
     assert set(kernels[0]) == {"name", "route", "source", "replaces", "launches", "max_abs_err",
-                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+                               "ms", "ms_8192_envs", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms"}
+    assert kernels[0]["ms"] == 0.2 and kernels[0]["ms_8192_envs"] == 0.35
     assert os.path.exists(os.path.join(chip_smoke.ROOT, kernels[0]["source"]))
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

@@ -1,9 +1,11 @@
 """Card-only checks of the CUDA decimation kernel (marker ``gpu``).
 
 They build ``csrc/decimation.cu`` and hold the kernel against its plain
-version on one decimation of the full task at 16 and at 4096 envs (the
-tolerances of chip_smoke.py), and check that a rollout launches the kernel
-once per policy step.  Without a card they skip; whether a card is present
+version on one decimation of the full task at 16 and at 4096 envs, each also
+with one env fewer (a ragged last block) and with a seeded external wrench,
+both flag settings (the tolerances of chip_smoke.py); check that the plain
+version divides as the kernel does; and check that a rollout launches the
+kernel once per policy step.  Without a card they skip; whether a card is present
 is decided inside the fixture.  On the card:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -38,3 +40,17 @@ def test_rollout_launches_kernel_once_per_step(card):
     env, policy, state, obs = chip_smoke.make_env(64, card, terrain_rows=4)
     state, obs, launches, _ = chip_smoke.phase_rollout(env, policy, state, obs, steps=5)
     assert launches == 5
+
+
+def test_plain_version_divides_like_the_kernel(card):
+    """The plain version's divisions by model constants round as one IEEE
+    float32 division on the card (as in the kernel and on the CPU), not as
+    PyTorch's multiplication by a CUDA-side reciprocal."""
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.physics.engine_core import _div
+
+    x = np.random.default_rng(0).normal(size=1 << 20).astype(np.float32)
+    for c in (0.1, 0.001, 2.0e6):
+        got = _div(torch.from_numpy(x).to(card), c).cpu().numpy()
+        np.testing.assert_array_equal(got, x / np.float32(c))

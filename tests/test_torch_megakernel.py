@@ -157,29 +157,147 @@ def test_plain_decimation_matches_jax_scan_path(flags):
     np.testing.assert_allclose(ring.numpy(), want["ring"], atol=1e-6)
 
 
-def test_consts_layout_matches_cuda_source():
-    """The wrapper's constant block has the layout of ``DecimConsts`` in
-    csrc/decimation.cu (same array limits, 4-byte fields, no padding)."""
-    src = open(mk.SOURCE).read()
+def _struct_fields(src):
+    """[(type, name, count)] of ``struct DecimConsts`` in the CUDA source, in
+    declaration order, comments stripped."""
     limits = {k: int(v) for k, v in re.findall(r"#define (MAX[BDPK]) (\d+)", src)}
-    assert limits == {"MAXB": mk.MAXB, "MAXD": mk.MAXD, "MAXP": mk.MAXP, "MAXK": mk.MAXK}
-    body = src[src.index("struct DecimConsts {"):src.index("};", src.index("struct DecimConsts {"))]
-    n_ints = n_floats = 0
+    start = src.index("struct DecimConsts {")
+    body = re.sub(r"//[^\n]*", "", src[start:src.index("};", start)])
+    fields = []
     for typ, decl in re.findall(r"\b(int|float) ([^;]+);", body):
-        size = 0
         for name in decl.split(","):
             dims = [int(eval(d, {}, limits)) for d in re.findall(r"\[([^\]]+)\]", name)]
-            size += int(np.prod(dims)) if dims else 1
-        if typ == "int":
-            n_ints += size
-        else:
-            n_floats += size
+            fields.append((typ, name.split("[")[0].strip(), int(np.prod(dims)) if dims else 1))
+    return limits, fields
+
+
+def test_consts_layout_matches_cuda_source():
+    """The wrapper's constant block has the layout of ``DecimConsts`` in
+    csrc/decimation.cu (same array limits, 4-byte fields, no padding, the int
+    block first), and each field decoded at its offset in the source holds
+    what the wrapper means to put there, the schedule tables included."""
+    src = open(mk.SOURCE).read()
+    limits, fields = _struct_fields(src)
+    assert limits == {"MAXB": mk.MAXB, "MAXD": mk.MAXD, "MAXP": mk.MAXP, "MAXK": mk.MAXK}
+    types = [t for t, _, _ in fields]
+    assert types == sorted(types, key=lambda t: t != "int"), "int block must come first"
+    n_ints = sum(c for t, _, c in fields if t == "int")
+    n_floats = sum(c for t, _, c in fields if t == "float")
     tm = tmodel.load_t1()
-    blob = mk.consts_bytes(tec.model_consts(tm), HSCALE, ContactOpts(), SolverOpts(), DEC,
+    mc = tec.model_consts(tm)
+    blob = mk.consts_bytes(mc, HSCALE, ContactOpts(), SolverOpts(), DEC,
                            DEFAULT_Q, TL, [6, 12], [4, 10])
     assert len(blob) == 4 * (n_ints + n_floats)
     ints = np.frombuffer(blob[:4 * n_ints], np.int32)
-    assert list(ints[:6]) == [13, 12, 32, DEC, 2, 2]
+    floats = np.frombuffer(blob[4 * n_ints:], np.float32)
+    at, off = {}, {"int": 0, "float": 0}
+    for typ, name, count in fields:
+        arr = ints if typ == "int" else floats
+        at[name] = arr[off[typ]:off[typ] + count]
+        off[typ] += count
+    assert [int(at[k][0]) for k in ("nb", "nd", "ncp", "dec", "nfeet", "nknees", "nlev")] == \
+        [13, 12, 32, DEC, 2, 2, 7]
+    assert list(at["parent"][:13]) == list(mc.parent)
+    assert list(at["cp_body"][:32]) == list(mc.cp_body)
+    assert list(at["feet"][:2]) == [6, 12] and list(at["knees"][:2]) == [4, 10]
+    sch = mk.schedule(mc)
+    for name in ("lev_start", "lev_body", "ch_start", "ch_list", "cp_start", "cp_order"):
+        assert list(at[name][:len(sch[name])]) == sch[name], name
+    np.testing.assert_array_equal(at["cp_pos"][:96], np.asarray(mc.cp_pos_c, np.float32).ravel())
+    np.testing.assert_array_equal(at["torque_limit"][:12], TL)
+    assert at["hscale"][0] == np.float32(HSCALE)
+    assert at["max_qvel"][0] == np.float32(SolverOpts().max_qvel)
+
+
+K1_SPEC = os.path.join(os.path.dirname(__file__), "..", "ti5_isaacgym_tpu", "resources",
+                       "k1_model.json")
+MODELS = {"t1": tmodel.load_t1, "k1": lambda: tmodel.load(K1_SPEC)}
+
+
+@pytest.fixture(params=sorted(MODELS))
+def model_consts(request):
+    return tec.model_consts(MODELS[request.param]())
+
+
+def test_schedule_levels_follow_the_tree(model_consts):
+    """Every body sits on exactly one level, and its parent on an earlier one."""
+    mc, sch = model_consts, mk.schedule(model_consts)
+    starts, bodies = sch["lev_start"], sch["lev_body"]
+    assert starts[0] == 0 and starts[-1] == mc.nb and len(starts) == sch["nlev"] + 1
+    assert sorted(bodies) == list(range(mc.nb)) and bodies[0] == 0
+    level = {}
+    for lv in range(sch["nlev"]):
+        members = bodies[starts[lv]:starts[lv + 1]]
+        assert members == sorted(members) and members
+        for i in members:
+            level[i] = lv
+    for i in range(1, mc.nb):
+        assert level[mc.parent[i]] == level[i] - 1
+
+
+def test_schedule_children_in_fold_order(model_consts):
+    """Each parent's children are its own, in descending index (the plain
+    version's inward loop ``for i in range(nb - 1, 0, -1)``)."""
+    mc, sch = model_consts, mk.schedule(model_consts)
+    st, ch = sch["ch_start"], sch["ch_list"]
+    assert len(st) == mc.nb + 1 and st[-1] == mc.nb - 1
+    for p in range(mc.nb):
+        kids = ch[st[p]:st[p + 1]]
+        assert kids == sorted(kids, reverse=True)
+        assert kids == [i for i in range(mc.nb - 1, 0, -1) if mc.parent[i] == p]
+
+
+def test_schedule_points_in_sum_order(model_consts):
+    """Each body's contact points are its own, in ascending index, and every
+    point belongs to exactly one body."""
+    mc, sch = model_consts, mk.schedule(model_consts)
+    st, order = sch["cp_start"], sch["cp_order"]
+    assert sorted(order) == list(range(mc.ncp)) and st[-1] == mc.ncp
+    for b in range(mc.nb):
+        pts = order[st[b]:st[b + 1]]
+        assert pts == sorted(pts) and all(mc.cp_body[c] == b for c in pts)
+
+
+def test_schedule_fits_the_kernel_limits(model_consts):
+    mc, sch = model_consts, mk.schedule(model_consts)
+    assert mc.nb <= mk.MAXB and mc.nd <= mk.MAXD and mc.ncp <= mk.MAXP
+    assert len(sch["lev_start"]) <= mk.MAXB + 1 and len(sch["lev_body"]) <= mk.MAXB
+    assert len(sch["ch_start"]) <= mk.MAXB + 1 and len(sch["ch_list"]) <= mk.MAXB
+    assert len(sch["cp_start"]) <= mk.MAXB + 1 and len(sch["cp_order"]) <= mk.MAXP
+    blob = mk.consts_bytes(mc, HSCALE, ContactOpts(), SolverOpts(), DEC, DEFAULT_Q, TL,
+                           [6, 12], [4, 10])
+    _, fields = _struct_fields(open(mk.SOURCE).read())
+    assert len(blob) == 4 * sum(c for _, _, c in fields)
+
+
+def test_schedule_folds_like_the_serial_loop(model_consts):
+    """Level by level, each parent folding its children in the table's order,
+    gives the serial inward loop's float32 sums bit for bit (the kernel's
+    ABA pass 2 and the plain version's), with each body's contribution a
+    function of its already-folded value."""
+    mc, sch = model_consts, mk.schedule(model_consts)
+    rng = np.random.default_rng(7)
+    own = rng.normal(size=(mc.nb, 6)).astype(np.float32) * np.float32(1e3)
+    contrib = lambda v: (v * np.float32(0.37) + np.float32(1.1)).astype(np.float32)  # noqa: E731
+    serial = own.copy()
+    for i in range(mc.nb - 1, 0, -1):
+        serial[mc.parent[i]] = serial[mc.parent[i]] + contrib(serial[i])
+    level = own.copy()
+    st, bodies = sch["lev_start"], sch["lev_body"]
+    for lv in range(sch["nlev"] - 1, 0, -1):
+        out = {i: contrib(level[i]) for i in bodies[st[lv]:st[lv + 1]]}
+        for p in bodies[st[lv - 1]:st[lv]]:
+            for c in sch["ch_list"][sch["ch_start"][p]:sch["ch_start"][p + 1]]:
+                level[p] = level[p] + out[c]
+    np.testing.assert_array_equal(level, serial)
+
+
+def test_schedule_rejects_a_parent_after_its_child():
+    mc = tec.model_consts(tmodel.load_t1())
+    parent = list(mc.parent)
+    parent[3] = 5
+    with pytest.raises(ValueError, match="parent"):
+        mk.schedule(mc._replace(parent=parent))
 
 
 def test_find_nvcc_raises_without_toolkit(monkeypatch):
@@ -214,3 +332,21 @@ def test_build_runs_nvcc_once_per_source(monkeypatch, tmp_path, capsys):
     assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args and "-v" in args
     src.write_text("// v2\n")
     assert mk.build() != first and log.read_text().count("\n") == 2
+
+
+def test_wrapper_builds_static_inputs_once():
+    """The constant block and the default apparent-mass rows are made once
+    per set of static arguments, not on every launch (a fresh pageable copy
+    of the masses would stall the stream each step)."""
+    mc = tec.model_consts(tmodel.load_t1())
+    args = (mc, HSCALE, ContactOpts(), SolverOpts(), DEC, DEFAULT_Q, TL, [6, 12], [4, 10])
+    first = mk._cached_consts(*args)
+    assert mk._cached_consts(*args) is first
+    assert first == mk.consts_bytes(*args)
+    assert mk._cached_consts(*args[:-2], None, None) != first
+    meff = np.random.default_rng(0).uniform(0.05, 0.5, size=(32, 2)).astype(np.float32)
+    rows = mk._default_meff(meff, 16, "cpu")
+    assert mk._default_meff(meff.copy(), 16, "cpu") is rows
+    assert tuple(rows.shape) == (64, 16) and rows.is_contiguous()
+    np.testing.assert_array_equal(rows[:, 3].numpy(), meff.T.reshape(-1))
+    assert mk._default_meff(meff, 15, "cpu") is not rows

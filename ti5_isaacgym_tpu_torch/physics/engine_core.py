@@ -110,6 +110,14 @@ def substep_batched(model: RobotModel, params, copts: ContactOpts, sopts: Solver
     return new_state, body_forces
 
 
+def _div(x, c: float):
+    """``x / c`` as one IEEE float division on every device.  PyTorch's CUDA
+    kernels turn a division by a Python scalar into a multiplication by the
+    scalar's reciprocal (one rounding more); the CUDA decimation kernel and
+    the CPU divide, and the kernel is held to this version bit for bit."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 def fk_components(mc: ModelConsts, bp, bq, bw, bv, qpos, qvel):
     """Component-form forward kinematics: (pos, rot, w, v, R_pc) per body —
     world position, world rotation, body-frame angular and linear velocity,
@@ -198,14 +206,14 @@ def substep_stacked(mc: ModelConsts, hscale: float, copts: ContactOpts,
 
     # frozen-cell analytic bilinear height and gradient (fu/fv unclipped: the
     # surface extrapolates continuously if a point drifts off its cell)
-    fu = (px - cells.x0) / hscale
-    fv = (py - cells.y0) / hscale
+    fu = _div(px - cells.x0, hscale)
+    fv = _div(py - cells.y0, hscale)
     c00, c10, c01, c11 = cells.h00, cells.h10, cells.h01, cells.h11
     gu = 1.0 - fu
     gv = 1.0 - fv
     h = c00 * gu * gv + c10 * fu * gv + c01 * gu * fv + c11 * fu * fv
-    dhdx = ((c10 - c00) * gv + (c11 - c01) * fv) / hscale
-    dhdy = ((c01 - c00) * gu + (c11 - c10) * fu) / hscale
+    dhdx = _div((c10 - c00) * gv + (c11 - c01) * fv, hscale)
+    dhdy = _div((c01 - c00) * gu + (c11 - c10) * fu, hscale)
     n_norm = torch.sqrt(dhdx * dhdx + dhdy * dhdy + 1.0)
     nx, ny, nz = -dhdx / n_norm, -dhdy / n_norm, 1.0 / n_norm
 
@@ -234,7 +242,7 @@ def substep_stacked(mc: ModelConsts, hscale: float, copts: ContactOpts,
     f_n = torch.clamp((copts.kp * depth - k_v * v_n) / denom, 0.0, copts.max_force) * active
     # depenetration-velocity cap: stop the approach, impart at most
     # max_depen_vel of outward velocity
-    f_cap = torch.clamp_min(mn * (copts.max_depen_vel - v_n) / copts.dt, 0.0)
+    f_cap = torch.clamp_min(_div(mn * (copts.max_depen_vel - v_n), copts.dt), 0.0)
     f_n = torch.minimum(f_n, f_cap)
     vtx, vty, vtz = vx - v_n * nx, vy - v_n * ny, vz - v_n * nz
     dtx, dty, dtz = px - ax_, py - ay_, pz - az_
@@ -252,9 +260,9 @@ def substep_stacked(mc: ModelConsts, hscale: float, copts: ContactOpts,
     fY = ny * f_n + fty
     fZ = nz * f_n + ftz
     sliding = (ft_mag > cone) & active
-    sx = px + ftx * denom_t / copts.kt
-    sy = py + fty * denom_t / copts.kt
-    sz = pz + ftz * denom_t / copts.kt
+    sx = px + _div(ftx * denom_t, copts.kt)
+    sy = py + _div(fty * denom_t, copts.kt)
+    sz = pz + _div(ftz * denom_t, copts.kt)
     nax = torch.where(active, torch.where(sliding, sx, ax_), px)
     nay = torch.where(active, torch.where(sliding, sy, ay_), py)
     naz = torch.where(active, torch.where(sliding, sz, az_), pz)

@@ -22,10 +22,11 @@ runs :func:`run_decimation_plain`, the same math as a torch loop over
 :func:`.engine_core.substep_stacked`, for CPU tensors.
 
 What bounds it on an H100: moving 1,396 float32 rows per env is 22.9 MB at
-4096 envs (6.8 us at 3.35 TB/s); its arithmetic is of the same order at
-67 TFLOP/s.  The first version runs one thread per env (32 of 132 SMs busy at
-4096 envs) with the body state in local memory; it is far from that bound
-and making it fast is later work (see PERF.md).
+4096 envs (6.8 us at 3.35 TB/s); its ~210 k float32 operations per env take
+12.8 us at 67 TFLOP/s, so operations bound it.  The kernel spreads each env
+over ``ti5_decim_lanes()`` threads (dofs, bodies, contact points and tree
+levels) with the body state in shared memory; the serial tree passes, not
+the bound, set its time (see the source note and PERF.md).
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ launches = 0
 _lib = None
 _lib_lock = threading.Lock()
 _consts_uploaded = {}          # device index -> bytes of the last upload
+_consts_cache = {}             # static arguments -> DecimConsts bytes
 last_build = {}                # seconds and ptxas report of this process's build
 
 
@@ -73,17 +75,21 @@ def find_nvcc() -> str:
                        "the CUDA decimation kernel is built from csrc/decimation.cu at first use")
 
 
-def build() -> str:
-    """Compile ``csrc/decimation.cu`` into ``build/ti5_torch_kernels/`` unless
-    a library built from the same source bytes is already there."""
+def build(source: str = None, info: dict = None) -> str:
+    """Compile ``source`` (default ``csrc/decimation.cu``) into
+    ``build/ti5_torch_kernels/`` unless a library built from the same source
+    bytes is already there.  The seconds and the ptxas report go into
+    ``info`` (default :data:`last_build`)."""
     import time
 
-    with open(SOURCE, "rb") as f:
+    source = SOURCE if source is None else source
+    with open(source, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libti5_decimation_{tag}.so")
+    info = last_build if info is None else info
     if os.path.exists(out):
-        last_build.update(seconds=0.0, cached=True, ptxas="")
+        info.update(seconds=0.0, cached=True, ptxas="")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
@@ -91,7 +97,7 @@ def build() -> str:
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
            # unfused multiply-add keeps the kernel's rounding that of the
            # plain torch version it is held against
-           "--fmad=false", "-o", tmp, os.path.abspath(SOURCE)]
+           "--fmad=false", "-o", tmp, os.path.abspath(source)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          stdin=subprocess.DEVNULL)
@@ -99,24 +105,64 @@ def build() -> str:
     print(res.stdout + res.stderr, file=sys.stderr, flush=True)   # ptxas -v report
     res.check_returncode()
     os.replace(tmp, out)
-    last_build.update(seconds=secs, cached=False, ptxas=res.stderr)
+    info.update(seconds=secs, cached=False, ptxas=res.stderr)
     return out
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """A built kernel library with its C interface typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.ti5_decim_consts_size, lib.ti5_decim_lanes):
+        fn.argtypes = []
+        fn.restype = ci
+    lib.ti5_decim_set_consts.argtypes = [vp, ci, vp]
+    lib.ti5_decim_set_consts.restype = ci
+    lib.ti5_decim_launch.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
+    lib.ti5_decim_launch.restype = ci
+    return lib
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ti5_decim_consts_size.argtypes = []
-            lib.ti5_decim_consts_size.restype = ci
-            lib.ti5_decim_set_consts.argtypes = [vp, ci, vp]
-            lib.ti5_decim_set_consts.restype = ci
-            lib.ti5_decim_launch.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
-            lib.ti5_decim_launch.restype = ci
-            _lib = lib
+            _lib = load_library(build())
     return _lib
+
+
+def schedule(mc: ModelConsts) -> dict:
+    """The kernel's schedule tables for a tree with ``parent[i] < i``:
+
+    * ``lev_body``/``lev_start``: the bodies by tree level (level ``l`` is
+      ``lev_body[lev_start[l]:lev_start[l + 1]]``, ascending index), ``nlev``
+      levels, the base alone on level 0;
+    * ``ch_list``/``ch_start``: each body's children in the order the plain
+      version folds them into it (``for i in range(nb - 1, 0, -1)``:
+      descending index);
+    * ``cp_order``/``cp_start``: each body's contact points in the order the
+      plain version sums them (ascending index).
+    """
+    nb, ncp = mc.nb, mc.ncp
+    level = [0] * nb
+    for i in range(1, nb):
+        p = int(mc.parent[i])
+        if not 0 <= p < i:
+            raise ValueError(f"body {i} has parent {p}: the kernel needs 0 <= parent[i] < i")
+        level[i] = level[p] + 1
+    nlev = max(level) + 1
+    lev_body = sorted(range(nb), key=lambda i: (level[i], i))
+    lev_start = [sum(1 for x in level if x < l) for l in range(nlev + 1)]
+    ch_list, ch_start = [], [0]
+    for p in range(nb):
+        ch_list += [i for i in range(nb - 1, 0, -1) if mc.parent[i] == p]
+        ch_start.append(len(ch_list))
+    cp_order, cp_start = [], [0]
+    for b in range(nb):
+        cp_order += [c for c in range(ncp) if mc.cp_body[c] == b]
+        cp_start.append(len(cp_order))
+    return dict(nlev=nlev, lev_start=lev_start, lev_body=lev_body, ch_start=ch_start,
+                ch_list=ch_list, cp_start=cp_start, cp_order=cp_order)
 
 
 def consts_bytes(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: SolverOpts,
@@ -134,10 +180,14 @@ def consts_bytes(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: Solv
         a[:x.size] = x
         return a
 
+    sch = schedule(mc)
     ints = np.concatenate([
-        [nb, nd, ncp, int(decimation), len(feet), len(knees)],
+        [nb, nd, ncp, int(decimation), len(feet), len(knees), sch["nlev"]],
         pad(mc.parent, MAXB), pad([int(x) for x in mc.jrot_identity], MAXB),
-        pad(mc.cp_body, MAXP), pad(feet, MAXK), pad(knees, MAXK)]).astype(np.int32)
+        pad(mc.cp_body, MAXP), pad(feet, MAXK), pad(knees, MAXK),
+        pad(sch["lev_start"], MAXB + 1), pad(sch["lev_body"], MAXB),
+        pad(sch["ch_start"], MAXB + 1), pad(sch["ch_list"], MAXB),
+        pad(sch["cp_start"], MAXB + 1), pad(sch["cp_order"], MAXP)]).astype(np.int32)
     kt_v = copts.kt * copts.dt + copts.kdt
     floats = np.concatenate([
         pad(mc.axis_c, MAXB * 3), pad(mc.jpos_c, MAXB * 3), pad(mc.jrot_c, MAXB * 9),
@@ -150,6 +200,22 @@ def consts_bytes(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: Solv
     return ints.tobytes() + floats.tobytes()
 
 
+def _cached_consts(mc, hscale, copts, sopts, dec, default_q, torque_limits, feet, knees):
+    """:func:`consts_bytes`, built once per set of static arguments (the env
+    passes the same ones on every step)."""
+    key = (id(mc), float(hscale), copts, sopts, dec,
+           np.asarray(default_q, np.float32).tobytes(),
+           np.asarray(torque_limits, np.float32).tobytes(),
+           None if feet is None else tuple(feet), None if knees is None else tuple(knees))
+    hit = _consts_cache.get(key)
+    if hit is None or hit[0] is not mc:
+        if len(_consts_cache) > 16:
+            _consts_cache.clear()
+        hit = _consts_cache[key] = (mc, consts_bytes(mc, hscale, copts, sopts, dec, default_q,
+                                                     torque_limits, feet, knees))
+    return hit[1]
+
+
 def _out_rows(mc: ModelConsts, dec: int, with_ctx: bool, nf: int, nk: int):
     rows = (13 + 2 * mc.nd, 3 * mc.ncp, 3 * mc.nb, mc.nd, dec * 2 * mc.nd, dec * 7)
     if with_ctx:
@@ -157,9 +223,23 @@ def _out_rows(mc: ModelConsts, dec: int, with_ctx: bool, nf: int, nk: int):
     return rows
 
 
+_meff_cache = {}               # (masses, n, device) -> [2*ncp, n] rows
+
+
 def _default_meff(cp_meff, n, device):
-    m = torch.as_tensor(np.asarray(cp_meff, np.float32).T.reshape(-1), device=device)
-    return m[:, None].expand(-1, n).contiguous()
+    """The model's apparent contact masses as [2*ncp, n] rows, made once per
+    (masses, n, device).  Made anew, the copy from pageable host memory would
+    wait for the stream to drain on every launch, and the host could never
+    run ahead of the kernels."""
+    col = np.asarray(cp_meff, np.float32).T.reshape(-1)
+    key = (col.tobytes(), int(n), str(device))
+    rows = _meff_cache.get(key)
+    if rows is None:
+        if len(_meff_cache) > 16:
+            _meff_cache.clear()
+        m = torch.as_tensor(col, device=device)
+        rows = _meff_cache[key] = m[:, None].expand(-1, n).contiguous()
+    return rows
 
 
 def run_decimation(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: SolverOpts,
@@ -207,8 +287,8 @@ def run_decimation(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: So
     outs = tuple(torch.empty((r, n), dtype=torch.float32, device=dev)
                  for r in _out_rows(mc, dec, with_ctx, nf, nk))
     lib = _load()
-    blob = consts_bytes(mc, hscale, copts, sopts, dec, default_q, torque_limits,
-                        feet_bodies if with_ctx else None, knee_bodies if with_ctx else None)
+    blob = _cached_consts(mc, hscale, copts, sopts, dec, default_q, torque_limits,
+                          feet_bodies if with_ctx else None, knee_bodies if with_ctx else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if _consts_uploaded.get(dev.index) != blob:
         if lib.ti5_decim_consts_size() != len(blob):
