@@ -3,13 +3,14 @@
 The script's phases are imported and run on a small full-task env (2x2
 terrain) through the plain path: the kernel-vs-plain comparison (here the
 plain version against itself), the rollout, the bound computed from the
-inputs, and the shape of the result lines.  The device and build phases need
-a card and are not run here.
+inputs, the training phase's checks, and the shape of the result lines.
+The device and build phases need a card and are not run here.
 """
 import json
 import os
 import sys
 
+import pytest
 import torch
 
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
@@ -42,15 +43,41 @@ def test_result_lines():
     times = dict(ms=0.2, ms_wide=0.35, host_us=60.0, plain_ms=1900.0, bound_ms=0.0128,
                  bound_by="operations")
     lines = chip_smoke.result_lines("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100 80GB HBM3", 1,
-                                    24, 1e-3, times)
+                                    24, 1e-3, times, [24, 24])
     kernels = json.loads(lines[0])["kernels"]
-    assert set(kernels[0]) == {"name", "route", "source", "replaces", "launches", "max_abs_err",
-                               "ms", "ms_8192_envs", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms"}
+    assert set(kernels[0]) == {"name", "route", "source", "replaces", "launches",
+                               "launches_per_training_iteration", "max_abs_err", "ms",
+                               "ms_8192_envs", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert kernels[0]["ms"] == 0.2 and kernels[0]["ms_8192_envs"] == 0.35
+    assert kernels[0]["launches_per_training_iteration"] == [24, 24]
     assert os.path.exists(os.path.join(chip_smoke.ROOT, kernels[0]["source"]))
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+
+
+def test_training_phase_runs_on_cpu(tmp_path):
+    """Phase 6 at 16 envs (2x2 terrain, 4 steps per env) through the kernel
+    path's plain version: the launch-count check counts the plain version's
+    calls (one per step of every iteration), the metrics and params are
+    finite and moved, lr in range, the save -> load round trip and the
+    iteration after it are bit-equal, and the comparison after an iteration
+    runs (the plain version against itself here); a corrupted restore is
+    caught."""
+    runner = chip_smoke.make_runner(16, "cpu", terrain_rows=2, steps=4, kernel_path_on_cpu=True)
+    assert runner.env.use_kernel_path and runner.env.num_envs == 16
+    out = chip_smoke.phase_train(runner, checkpoint=str(tmp_path / "model.pt"))
+    assert out["launches"] == [4] * 6 and out["peak_bytes"] is None and out["worst"] == 0.0
+    assert set(out["stats"]) == {"value_loss", "surrogate_loss", "estimator_loss", "kl", "lr"}
+    assert runner.ppo_cfg.min_lr <= out["stats"]["lr"] <= runner.ppo_cfg.max_lr
+    assert 0.0 <= out["reset_share"] <= 1.0 and out["checkpoint_fields"] > 100
+    assert out["rollout_ms"] > 0 and out["gae_ms"] > 0 and out["update_ms"] > 0
+    a = {"x": {"y": torch.zeros(3)}, "g": torch.tensor(1)}
+    assert chip_smoke._bit_equal(a, {"x": {"y": torch.zeros(3)}, "g": torch.tensor(1)}, "a") == 2
+    for other in ({"x": {"y": -torch.zeros(3)}, "g": torch.tensor(1)},
+                  {"x": {"y": torch.zeros(3)}, "g": torch.tensor(2)},
+                  {"x": {"y": torch.zeros(3, dtype=torch.float64)}, "g": torch.tensor(1)}):
+        with pytest.raises(AssertionError, match="not bit-equal"):
+            chip_smoke._bit_equal(a, other, "a")
 
 
 def test_play_entry_point_and_vec_env_on_cpu():

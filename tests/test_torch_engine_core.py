@@ -89,3 +89,17 @@ def test_kinematics_match_jax():
     assert len(tr) == 24
     for a, b in zip(tr, jr):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def test_scalar_divisions_round_once():
+    """``_div(x, c)`` and ``_over(c, x)`` equal numpy's float32 ``x / c`` and
+    ``c / x`` bit for bit, as the CUDA kernel divides, on 65,536 seeded
+    values; PyTorch's own ``c / x`` (``x.reciprocal() * c``, one rounding
+    more) differs on some of them.  ``tests/test_torch_gpu.py`` checks the
+    same on the card."""
+    x = np.random.default_rng(0).uniform(0.05, 50.0, size=1 << 16).astype(np.float32)
+    t = torch.from_numpy(x)
+    for c in (22.0, 0.1, 3.0):
+        np.testing.assert_array_equal(tec._over(c, t).numpy(), np.float32(c) / x)
+        np.testing.assert_array_equal(tec._div(t, c).numpy(), x / np.float32(c))
+    assert bool(((22.0 / t).numpy() != np.float32(22.0) / x).any())

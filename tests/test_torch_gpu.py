@@ -1,11 +1,12 @@
-"""Card-only checks of the CUDA decimation kernel (marker ``gpu``).
+"""Card-only checks of the CUDA decimation kernel and training (marker ``gpu``).
 
 They build ``csrc/decimation.cu`` and hold the kernel against its plain
 version on one decimation of the full task at 16 and at 4096 envs, each also
 with one env fewer (a ragged last block) and with a seeded external wrench,
 both flag settings (the tolerances of chip_smoke.py); check that the plain
-version divides as the kernel does; and check that a rollout launches the
-kernel once per policy step.  Without a card they skip; whether a card is present
+version divides as the kernel does; check that a rollout launches the kernel
+once per policy step; and run chip_smoke.py's training phase at 1024 envs.
+Without a card they skip; whether a card is present
 is decided inside the fixture.  On the card:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -42,15 +43,29 @@ def test_rollout_launches_kernel_once_per_step(card):
     assert launches == 5
 
 
+def test_training_iteration_on_the_card(card, tmp_path):
+    """One training iteration at 1024 envs (2x2 terrain, 24 steps) and the
+    checks of chip_smoke.py phase 6: 24 kernel launches per iteration,
+    finite and moved params, lr in range, a bit-exact save -> load round
+    trip and iteration after it, the kernel against its plain version after
+    the iteration."""
+    runner = chip_smoke.make_runner(1024, card, terrain_rows=2)
+    assert runner.env.use_kernel_path
+    out = chip_smoke.phase_train(runner, checkpoint=str(tmp_path / "model.pt"))
+    assert out["launches"] == [24] * 6 and out["peak_bytes"] > 0 and out["worst"] < 2.0
+
+
 def test_plain_version_divides_like_the_kernel(card):
-    """The plain version's divisions by model constants round as one IEEE
-    float32 division on the card (as in the kernel and on the CPU), not as
-    PyTorch's multiplication by a CUDA-side reciprocal."""
+    """The plain version's divisions by and of model constants round as one
+    IEEE float32 division on the card (as in the kernel), not as PyTorch's
+    multiplication by a reciprocal."""
     import numpy as np
 
-    from ti5_isaacgym_tpu_torch.physics.engine_core import _div
+    from ti5_isaacgym_tpu_torch.physics.engine_core import _div, _over
 
     x = np.random.default_rng(0).normal(size=1 << 20).astype(np.float32)
-    for c in (0.1, 0.001, 2.0e6):
+    for c in (0.1, 0.001, 2.0e6, 22.0):
         got = _div(torch.from_numpy(x).to(card), c).cpu().numpy()
         np.testing.assert_array_equal(got, x / np.float32(c))
+        got = _over(c, torch.from_numpy(x).to(card)).cpu().numpy()
+        np.testing.assert_array_equal(got, np.float32(c) / x)

@@ -1,8 +1,8 @@
 """The port imports neither ``jax`` nor anything of ``ti5_isaacgym_tpu``.
 
 Every module of ``ti5_isaacgym_tpu_torch`` and ``chip_smoke.py`` is imported
-in a fresh interpreter where ``jax``, ``jaxlib``, ``flax`` and
-``ti5_isaacgym_tpu`` are blocked in ``sys.modules`` (an import of any of
+in a fresh interpreter where ``jax``, ``jaxlib``, ``flax``, ``optax``,
+``orbax`` and ``ti5_isaacgym_tpu`` are blocked in ``sys.modules`` (an import of any of
 them raises).  Also: the port's entry points refuse ``cuda`` where no card
 is present instead of falling back to the CPU.
 """
@@ -17,7 +17,8 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "ti5_isaacgym_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ti5_isaacgym_tpu")
+for name in BLOCKED:
     sys.modules[name] = None
 sys.path.insert(0, ROOT)
 import ti5_isaacgym_tpu_torch as pkg
@@ -25,8 +26,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ti5_isaacgym_tpu")
-       and sys.modules[m] is not None]
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 print(len(mods))
 """

@@ -1,17 +1,23 @@
-"""Weights carried across from the JAX package.
+"""Weights and learning state carried across from the JAX package.
 
 :func:`params_from_flat` maps flat flax keys (``actor/Dense_0/kernel`` ...,
 the layout of ``ti5_isaacgym_tpu/export/policy.py:59-85`` and of the exported
-``policy_dh.npz``) onto :class:`.networks.ActorCriticDH`'s ``state_dict``:
+``policy_dh.npz``) onto the ``state_dict`` of :class:`.networks.ActorCriticDH`
+or :class:`.networks.ActorCritic`:
 
 * ``Dense_i/kernel`` (in, out) -> ``layers.i.weight`` (out, in);
 * ``Conv_i/kernel`` (k, in, out), channels last -> ``convs.i.weight``
   (out, in, k);
 * the long-history head's ``Dense_0/1`` -> ``fc.layers.0/1``.
+
+:func:`train_state_from_jax` carries a whole JAX ``TrainState`` (params,
+optax's Adam moments and count, the carried learning rate, the update count)
+into a :class:`.ppo.TrainState` through the same mapping, so that a JAX
+training run continues in the port.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -30,17 +36,54 @@ def _key(flax_key: str) -> tuple:
     return f"{name}.{'weight' if leaf == 'kernel' else 'bias'}", layer.split("_")[0]
 
 
+def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax param dict (with or without its ``params`` root) ->
+    ``{"actor/Dense_0/kernel": array, ...}``."""
+    if prefix == "" and set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
 def params_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat flax params (e.g. ``dict(np.load('policy_dh.npz'))``) -> a
-    ``state_dict`` for :class:`ActorCriticDH`."""
+    ``state_dict`` for :class:`ActorCriticDH` or :class:`ActorCritic`."""
     out = {}
     for k, v in flat.items():
         name, kind = _key(k)
         a = np.asarray(v, np.float32)
         if name.endswith(".weight"):
             a = a.transpose(2, 1, 0) if kind == "Conv" else a.T
-        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+        out[name] = torch.from_numpy(np.array(a, order="C"))
     return out
+
+
+def train_state_from_jax(params, opt_state, lr, update_count, device="cpu"):
+    """A JAX ``TrainState``'s fields, with numpy leaves (``jax.tree.map(
+    np.asarray, ...)``), -> :class:`.ppo.TrainState`.  ``opt_state`` is the
+    state of ``optax.chain(clip_by_global_norm, scale_by_adam)``: the clip's
+    state is empty, and the Adam state's ``count``, ``mu`` and ``nu`` map onto
+    the port's moments by the keys of :func:`params_from_flat`."""
+    from .ppo import TrainState
+
+    adam = next(s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    dev = torch.device(device)
+
+    def tensors(tree):
+        return {k: v.to(dev) for k, v in params_from_flat(flatten_tree(tree)).items()}
+
+    return TrainState(
+        params=tensors(params), mu=tensors(adam.mu), nu=tensors(adam.nu),
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=dev),
+        lr=torch.tensor(float(np.asarray(lr)), dtype=torch.float32, device=dev),
+        update_count=torch.tensor(int(np.asarray(update_count)), dtype=torch.int32,
+                                  device=dev))
 
 
 def load_npz(path: str, net=None, device="cpu"):

@@ -118,6 +118,13 @@ def _div(x, c: float):
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def _over(c: float, x):
+    """``c / x`` as one IEEE float division on every device.  PyTorch computes
+    a Python scalar over a tensor as ``x.reciprocal() * c`` (one rounding
+    more) on the CPU and the card alike; the kernel divides."""
+    return torch.tensor(c, dtype=x.dtype, device=x.device) / x
+
+
 def fk_components(mc: ModelConsts, bp, bq, bw, bv, qpos, qvel):
     """Component-form forward kinematics: (pos, rot, w, v, R_pc) per body —
     world position, world rotation, body-frame angular and linear velocity,
@@ -248,7 +255,7 @@ def substep_stacked(mc: ModelConsts, hscale: float, copts: ContactOpts,
     dtx, dty, dtz = px - ax_, py - ay_, pz - az_
     d_n = dtx * nx + dty * ny + dtz * nz
     dtx, dty, dtz = dtx - d_n * nx, dty - d_n * ny, dtz - d_n * nz
-    denom_t = 1.0 + copts.dt * kt_v / mt
+    denom_t = 1.0 + _over(copts.dt * kt_v, mt)
     ftx = -(copts.kt * dtx + kt_v * vtx) / denom_t
     fty = -(copts.kt * dty + kt_v * vty) / denom_t
     ftz = -(copts.kt * dtz + kt_v * vtz) / denom_t

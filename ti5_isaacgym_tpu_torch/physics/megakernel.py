@@ -55,6 +55,9 @@ MAXB, MAXD, MAXP, MAXK = 16, 15, 40, 4
 
 # launches of the CUDA kernel; the plain version does not count
 launches = 0
+# calls of run_decimation with CPU tensors, which run the plain version (a
+# CPU rehearsal of a launch count checks this one)
+plain_runs = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -255,9 +258,10 @@ def run_decimation(mc: ModelConsts, hscale: float, copts: ContactOpts, sopts: So
     CUDA tensors launch ``csrc/decimation.cu``; CPU tensors run
     :func:`run_decimation_plain`.
     """
-    global launches
+    global launches, plain_runs
     dev = state_rows.device
     if dev.type == "cpu":
+        plain_runs += 1
         return run_decimation_plain(
             mc, hscale, copts, sopts, decimation, default_q, torque_limits, cp_meff,
             use_coulomb, use_noise, state_rows, anchor_rows, cell_rows, dyn_rows,

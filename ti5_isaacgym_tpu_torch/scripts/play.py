@@ -10,8 +10,9 @@ with the policy's action mean:
 The reference's eval-time overrides apply (3x3 terrain without curriculum,
 no pushes, no external forces; ``make_env_cfg(full_task=True)`` keeps the
 task's own terrain grid and domain randomization, as ``chip_smoke.py``
-does).  Random weights come from the training seed.  No viewer, video or
-teleop.  Runs on ``cuda`` unless ``--device cpu``.
+does).  Random weights are drawn as flax's defaults draw them
+(:func:`~..algo.networks.init_like_flax_`) from the training seed.  No
+viewer, video or teleop.  Runs on ``cuda`` unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import time
 import torch
 
 from ..algo.convert import load_npz
-from ..algo.networks import ActorCriticDH
+from ..algo.networks import ActorCriticDH, init_like_flax_
 from ..configs.t1_dh_stand import T1EnvCfg, T1TrainCfg
 from ..envs.t1_dh_stand import T1DHStandEnv
 from ..utils.device import resolve_device
@@ -61,8 +62,8 @@ def make_policy(env_cfg: T1EnvCfg, policy_path=None, seed: int = 0, device="cuda
     if policy_path:
         net = load_npz(policy_path, device=dev)
     else:
-        torch.manual_seed(seed)
-        net = ActorCriticDH(num_critic_obs=env_cfg.env.num_privileged_obs).to(dev)
+        net = init_like_flax_(ActorCriticDH(num_critic_obs=env_cfg.env.num_privileged_obs),
+                              torch.Generator().manual_seed(seed)).to(dev)
     return net.eval()
 
 
