@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the task's full width (the 20x20
-rough-terrain grid, full domain randomization, action/dof/IMU lag, the
-decimation kernel on): the ``t1_dh_stand`` policy rollout at 4096 envs and
-the DH-PPO training iteration at 8192 envs.  Phases, each printing one line
-with its elapsed seconds:
+Drives the port's paths at the task's full width (the 20x20 rough-terrain
+grid, full domain randomization, action/dof/IMU lag, the decimation kernel
+on): the ``t1_dh_stand`` policy rollout at 4096 envs, the DH-PPO training
+iteration at 8192 envs, and every registered task through the task
+registry with a CLI resume and the deployment export.  Phases, each
+printing one line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: ``nvcc`` of ``csrc/decimation.cu`` into ``build/ti5_torch_kernels``
@@ -40,12 +41,27 @@ with its elapsed seconds:
    and on, with phase 3's tolerances, on the inputs of the step after that
    iteration (sampled actions, envs just reset among them).  Prints the
    iteration time, env-steps/s, the split, the five update stats, the reset
-   share and the peak memory.
+   share and the peak memory;
+7. tasks, resume, export, all under ``build/ti5_torch_smoke/phase7``:
+   ``k1_dh_stand`` at 8192 envs (1 warm, 2 timed and 1 split iteration) and
+   ``t1_flat`` at its own 1024 (1 warm, 1 split) through
+   ``task_registry.make_env`` / ``make_alg_runner``, each with phase 6's
+   per-iteration checks, then on the next step's inputs the kernel against
+   its plain version (flags off and on) and every contact point's cell
+   against the per-point ``gather_contact_cells``; the kernel's time at
+   K1 x 8192 as phase 5 takes it; ``scripts/train.main`` for K1 at 8192 envs
+   for 2 iterations, ``--resume`` for 1, and 3 straight, the resumed
+   ``model_3.pt`` bit-equal to the straight one; ``scripts/export_policy``
+   on it, ``load_npz`` of the export bit-equal to the runner's policy on 64
+   observations, the port's ONNX runtime and ``native/ti5_infer`` (built
+   with g++ under ``build/``) within 2e-4; the export of the committed
+   round-5 policy byte-equal to the committed ONNX, manifest and YAML.
 
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line.  Imports only the port, torch, numpy and the standard library; needs
-no network; writes only under ``build/``.
+no network; writes only under ``build/``.  The kernels' JSON line lists the
+one kernel, with a ``configurations`` entry per task it ran on.
 """
 from __future__ import annotations
 
@@ -84,6 +100,8 @@ TOLERANCES = {"state": (2e-4, 0.0), "anchors": (2e-4, 0.0), "forces": (2.0, 2e-3
               "imu_snapshots": (2e-4, 0.0), "ctx": (2e-4, 0.0)}
 OUTPUTS = tuple(TOLERANCES)
 CHECKPOINT = os.path.join(ROOT, "build", "ti5_torch_smoke", "model_smoke.pt")
+PHASE7_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase7")
+FLAT_ENVS = 1024       # t1_flat's own width
 T0 = time.perf_counter()
 
 
@@ -152,10 +170,11 @@ def decimation_inputs(env, state, obs, policy):
     return inputs
 
 
-def compare(env, inputs, flags: bool, label: str) -> float:
+def compare(env, inputs, flags: bool, label: str, shares=None) -> float:
     """``run_decimation`` on the env's device against ``run_decimation_plain``
     on the same inputs; raises if an output is not finite or out of its
-    tolerance, else returns the largest gap."""
+    tolerance, else returns the largest gap (and appends the share of output
+    values that are bit-equal to ``shares``)."""
     import torch
 
     from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation, run_decimation_plain
@@ -180,6 +199,8 @@ def compare(env, inputs, flags: bool, label: str) -> float:
         if float(over.max()) > 0:
             raise AssertionError(f"kernel output {name} differs from the plain version by "
                                  f"{gap:.3g} (atol {atol}, rtol {rtol}; {label}, flags {flags})")
+    if shares is not None:
+        shares.append(same / total)
     feet = list(env.model.feet_bodies)
     fz = want[2].reshape(env.model.nb, 3, -1)[feet, 2]
     in_contact = float((fz > 5.0).any(dim=0).float().mean())
@@ -205,14 +226,14 @@ def compare_cases(env, inputs) -> list:
             (f"{n} envs, external wrench", dict(inputs, extw_rows=extw))]
 
 
-def phase_compare(env, state, obs, policy):
+def phase_compare(env, state, obs, policy, shares=None):
     """The kernel against its plain version in every case of
     :func:`compare_cases`, flags off and on; returns the largest gap."""
     inputs = decimation_inputs(env, state, obs, policy)
     worst = 0.0
     for label, case in compare_cases(env, inputs):
         for flags in (False, True):
-            worst = max(worst, compare(env, case, flags, label))
+            worst = max(worst, compare(env, case, flags, label, shares))
     return worst
 
 
@@ -285,33 +306,22 @@ def time_kernel(args, inputs, reps: int = 50):
 
 
 def phase_times(env, state, obs, policy, reps: int = 50):
+    """Phase 5: :func:`time_width` at the env's width, and the kernel alone
+    at twice it (the inputs tiled along N)."""
     import torch
 
-    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation_plain
-
     inputs = decimation_inputs(env, state, obs, policy)
-    args = env.decimation_args()
-    ms, host_us, ahead = time_kernel(args, inputs, reps)
+    out = time_width(env, inputs, reps)
     wide = {k: torch.cat([v, v], dim=1).contiguous() for k, v in inputs.items()}
-    ms_wide, host_us_wide, ahead_wide = time_kernel(args, wide, reps)
+    out["ms_wide"], host_us_wide, ahead = time_kernel(env.decimation_args(), wide, reps)
     del wide
-    if not (ahead and ahead_wide):
+    if not ahead:
         raise AssertionError("the host fell behind the device while enqueueing the timed "
                              "launches: the times would be the host's")
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    run_decimation_plain(**args, **inputs)
-    t1.record()
-    torch.cuda.synchronize()
-    plain_ms = t0.elapsed_time(t1)
-    bound_ms, bound_by, nbytes, ops = kernel_bound(env, inputs)
-    n = env.num_envs
-    log(f"times: kernel {ms:.4f} ms at {n} envs, {ms_wide:.4f} ms at {2 * n} envs (mean of "
-        f"{reps}; host enqueue {host_us:.1f} / {host_us_wide:.1f} us per launch, host ahead), "
-        f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} "
-        f"float32 ops; {2 * bound_ms:.5f} ms at {2 * n} envs), library: none")
-    return dict(ms=ms, ms_wide=ms_wide, host_us=host_us, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    log(f"times: kernel {out['ms_wide']:.4f} ms at {2 * env.num_envs} envs (mean of {reps}; "
+        f"host enqueue {host_us_wide:.1f} us per launch, host ahead), bound "
+        f"{2 * out['bound_ms']:.5f} ms, library: none")
+    return out
 
 
 def make_runner(num_envs: int, device, terrain_rows=None, steps=None,
@@ -466,13 +476,15 @@ def phase_train(runner, checkpoint: str = CHECKPOINT):
     c2, m2 = run(restored)
     _bit_equal({"carry": carry_to_dict(c1), "metrics": m1},
                {"carry": carry_to_dict(c2), "metrics": m2}, "iteration after the restore")
-    worst = compare_after_iteration(runner, c1)
+    shares = []
+    worst = compare_after_iteration(runner, c1, shares)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     stats = {k: float(metrics[k]) for k in
              ("value_loss", "surrogate_loss", "estimator_loss", "kl", "lr")}
     out = dict(init_s=init_s, warm_s=warm_s, iter_ms=iter_ms,
                env_steps_per_s=n * steps / (iter_ms / 1e3), rollout_ms=rollout_ms,
-               gae_ms=gae_ms, update_ms=update_ms, launches=counts, worst=worst, stats=stats,
+               gae_ms=gae_ms, update_ms=update_ms, launches=counts, worst=worst,
+               bit_equal_share=min(shares), stats=stats,
                reset_share=sum(done) / (n * steps * len(done)), peak_bytes=peak,
                checkpoint_fields=fields, checkpoint_bytes=os.path.getsize(path))
     mem = f"{peak / 2**30:.2f} GiB" if peak is not None else "not measured (CPU)"
@@ -487,7 +499,7 @@ def phase_train(runner, checkpoint: str = CHECKPOINT):
     return out
 
 
-def compare_after_iteration(runner, carry) -> float:
+def compare_after_iteration(runner, carry, shares=None) -> float:
     """The kernel against its plain version at the training width, flags off
     and on, on the inputs of the step that follows ``carry`` (an iteration's
     end): actions sampled as the rollout samples them, the envs reset in the
@@ -501,7 +513,338 @@ def compare_after_iteration(runner, carry) -> float:
     inputs, _ = env.pack_decimation(state, actions, env.contact_cells(state))
     fresh = int((state.episode_length == 0).sum())
     label = f"{env.num_envs} envs after a training iteration ({fresh} just reset)"
-    return max(compare(env, inputs, flags, label) for flags in (False, True))
+    return max(compare(env, inputs, flags, label, shares) for flags in (False, True))
+
+
+# --- phase 7: the registered tasks, a CLI resume, the export ------------------
+
+
+def make_task_runner(task: str, num_envs: int, device, log_root: str):
+    """``task``'s env and runner through the task registry at ``num_envs``,
+    its own config otherwise."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, num_envs=num_envs))
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=device)
+    runner, _ = task_registry.make_alg_runner(env, task, log_root=log_root, device=device)
+    return runner
+
+
+def compare_cells(env, state) -> dict:
+    """The env's contact cells (the supercell gather on rough terrain, the
+    analytic plane cache on flat ground) against the per-point reference
+    ``gather_contact_cells`` for every contact point of every env of
+    ``state``: the same cell for every point and equal corner heights (the
+    reference reads the bf16-rounded map, the values the patch table
+    stores); raises otherwise.  Also the largest gap to the float32 map."""
+    import torch
+
+    from ti5_isaacgym_tpu_torch.physics.contact import gather_contact_cells, packed_cell_corners
+    from ti5_isaacgym_tpu_torch.physics.engine_core import _div, contact_point_xy
+
+    px, py = contact_point_xy(env.model, state.phys)
+    got = env.contact_cells(state)
+    hf = env.heightfield
+    heights = ("h00", "h10", "h01", "h11")
+    if env.terrain is None:
+        # a plane: every corner height is 0, whatever cell holds the point
+        want = gather_contact_cells(hf, packed_cell_corners(hf.height), px, py)
+        same_cell = reciprocal_moves = None
+        bad = [f for f in heights if not (torch.equal(getattr(got, f), getattr(want, f))
+                                          and not bool(getattr(got, f).any()))]
+        f32_gap = 0.0
+    else:
+        hf16 = hf.replace(height=hf.height.to(torch.bfloat16).float())
+        want = gather_contact_cells(hf16, packed_cell_corners(hf16.height), px, py)
+        same_cell = int(((got.x0 == want.x0) & (got.y0 == want.y0)).sum())
+        if same_cell != px.numel():
+            raise AssertionError(f"the supercell gather picked another cell than "
+                                 f"gather_contact_cells for {px.numel() - same_cell} of "
+                                 f"{px.numel()} points")
+        bad = [f for f in heights if not torch.equal(getattr(got, f), getattr(want, f))]
+        want32 = gather_contact_cells(hf, packed_cell_corners(hf.height), px, py)
+        f32_gap = max(float((getattr(got, f) - getattr(want32, f)).abs().max()) for f in heights)
+        # the points whose cell row or column PyTorch's own division by the
+        # cell size (on a card a multiply by the reciprocal) would move: what
+        # routing the gathers' divisions through engine_core._div avoids
+        moved = torch.zeros_like(px, dtype=torch.bool)
+        for p in (px, py):
+            moved |= (torch.floor(_div(p + hf.offset, hf.hscale))
+                      != torch.floor((p + hf.offset) / hf.hscale))
+        reciprocal_moves = int(moved.sum())
+    if bad:
+        raise AssertionError(f"contact cell corner heights differ from gather_contact_cells "
+                             f"in {bad}")
+    return {"points": px.numel(), "same_cell": same_cell, "f32_gap": f32_gap,
+            "reciprocal_moves": reciprocal_moves}
+
+
+def phase_task(task: str, runner, timed: int, time_kernel_too: bool = False) -> dict:
+    """One registered task's training iterations and checks (phase 7, steps
+    1-2): 1 warm iteration, ``timed`` timed ones and one split into rollout /
+    GAE / update, each launching the kernel once per step; finite params,
+    metrics and losses, params moved; then, on the inputs of the next step,
+    the kernel against its plain version (flags off and on, phase 3's
+    tolerances) and the env's contact cells against
+    ``gather_contact_cells``; with ``time_kernel_too`` the kernel's time,
+    the plain version's and the bound at this width (as in phase 5)."""
+    import torch
+
+    t_start = time.perf_counter()
+    env, dev = runner.env, runner.device
+    n, steps = env.num_envs, runner.num_steps_per_env
+    iteration = runner._make_iteration()
+    carry = runner.init_carry()
+    params0 = {k: v.clone() for k, v in carry.ts.params.items()}
+    counts = []
+
+    def run(c, mark=None):
+        _reset_launch_count()
+        c, m = iteration(c, mark)
+        _sync(dev)
+        counts.append(_launch_count(dev))
+        if counts[-1] != steps:
+            raise AssertionError(f"a {task} iteration launched the decimation "
+                                 f"kernel {counts[-1]} times, expected {steps}")
+        for k, v in m.items():
+            if not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"training metric {k} is not finite: {v}")
+        return c, m
+
+    carry, _ = run(carry)                                  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        carry, metrics = run(carry)
+    iter_ms = (time.perf_counter() - t0) / timed * 1e3
+    borders = []
+    _sync(dev)
+    t0 = time.perf_counter()
+
+    def mark(_name):
+        _sync(dev)
+        borders.append(time.perf_counter())
+
+    carry, metrics = run(carry, mark)
+    split = [1e3 * (b - a) for a, b in zip([t0] + borders[:2], borders)]
+    for k, v in carry.ts.params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"parameter {k} is not finite")
+    moved = max(float((carry.ts.params[k] - params0[k]).abs().max()) for k in params0)
+    if not moved > 0:
+        raise AssertionError("training did not move the parameters")
+    cells = compare_cells(env, carry.env_state)
+    shares = []
+    worst = compare_after_iteration(runner, carry, shares)
+    out = dict(num_envs=n, iter_ms=iter_ms, env_steps_per_s=n * steps / (iter_ms / 1e3),
+               split_ms=split, launches=counts, worst=worst, bit_equal_share=min(shares),
+               cells=cells, params_moved=moved)
+    if time_kernel_too and dev.type == "cuda":
+        with torch.no_grad():
+            actions = runner.alg.act(carry.ts.params, carry.obs, carry.priv_obs, carry.rng)[0]
+        inputs, _ = env.pack_decimation(carry.env_state, actions,
+                                        env.contact_cells(carry.env_state))
+        out["times"] = time_width(env, inputs)
+    cell_msg = (f"{cells['same_cell']} of {cells['points']} points in the same cell as "
+                f"gather_contact_cells, corner heights equal to the bf16 map "
+                f"(max {cells['f32_gap']:.3g} m from the float32 map; PyTorch's own division "
+                f"by the cell size would move {cells['reciprocal_moves']} of them)"
+                if cells["same_cell"] is not None else
+                f"{cells['points']} points on a plane, every corner height 0 both ways")
+    log(f"task {task}: {n} envs x {steps} steps, {iter_ms:.1f} ms per iteration "
+        f"({out['env_steps_per_s']:.1f} env-steps/s; mean of {timed} after 1 warm), split "
+        f"rollout {split[0]:.1f} / GAE {split[1]:.1f} / update {split[2]:.1f} ms, kernel "
+        f"launches per iteration {counts}; params moved (max {moved:.3g}); {cell_msg}; "
+        f"kernel vs plain {min(shares):.4%} bit-equal, max gap {worst:.3g} "
+        f"({time.perf_counter() - t_start:.1f} s)")
+    return out
+
+
+def time_width(env, inputs, reps: int = 50) -> dict:
+    """The kernel's time on ``inputs`` (mean of ``reps`` warm launches on
+    CUDA events, the host ahead), one launch of the plain version, and the
+    bound (phases 5 and 7)."""
+    import torch
+
+    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation_plain
+
+    args = env.decimation_args()
+    ms, host_us, ahead = time_kernel(args, inputs, reps)
+    if not ahead:
+        raise AssertionError("the host fell behind the device while enqueueing the timed "
+                             "launches: the times would be the host's")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    run_decimation_plain(**args, **inputs)
+    t1.record()
+    torch.cuda.synchronize()
+    bound_ms, bound_by, nbytes, ops = kernel_bound(env, inputs)
+    n = int(inputs["state_rows"].shape[1])
+    log(f"times ({env.cfg.asset.name}, {n} envs, {env.model.ncp} contact points): kernel "
+        f"{ms:.4f} ms (mean of {reps}; host enqueue {host_us:.1f} us per launch, host ahead), "
+        f"plain {t0.elapsed_time(t1):.2f} ms, bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B, "
+        f"{ops} float32 ops)")
+    return dict(ms=ms, host_us=host_us, plain_ms=t0.elapsed_time(t1), bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_resume(device, root: str, num_envs: int, task: str = "k1_dh_stand") -> dict:
+    """Phase 7, step 3: ``scripts/train.main`` three times: 2 iterations;
+    ``--resume --max_iterations 1``; a straight 3-iteration run under
+    another log root.  The resume must pick the first run's model_2.pt and
+    write model_3.pt, bit-equal (params, Adam state, lr, env state,
+    generators) to the straight run's.  Returns the resumed run's runner."""
+    import torch
+
+    from ti5_isaacgym_tpu_torch.scripts import train
+
+    t0 = time.perf_counter()
+    dev = str(device)
+
+    def cli(log_root, run_name, *flags):
+        return train.main(["--task", task, "--num_envs", str(num_envs), "--device", dev,
+                           "--log_root", log_root, "--run_name", run_name, "--log_every", "1",
+                           *flags])
+
+    def free(runner):
+        log_dir = runner.log_dir
+        del runner
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return log_dir
+
+    first = free(cli(os.path.join(root, "runs"), "first", "--max_iterations", "2"))
+    runner = cli(os.path.join(root, "runs"), "resumed", "--max_iterations", "1", "--resume")
+    resumed, picked = runner.log_dir, runner.resume_path
+    if picked != os.path.join(first, "model_2.pt"):
+        raise AssertionError(f"--resume picked {picked}, not the first run's model_2.pt")
+    straight = free(cli(os.path.join(root, "straight"), "straight", "--max_iterations", "3"))
+    got = os.path.join(resumed, "model_3.pt")
+    if not os.path.exists(got):
+        raise AssertionError(f"the resumed run wrote {sorted(os.listdir(resumed))}, no model_3.pt")
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    a, b = load(got), load(os.path.join(straight, "model_3.pt"))
+    if a.pop("iteration") != 3 or b.pop("iteration") != 3:
+        raise AssertionError("model_3.pt does not hold iteration 3")
+    fields = _bit_equal(a, b, "resumed model_3.pt against the straight run's")
+    log(f"resume: {task} at {num_envs} envs, 2 iterations, then --resume from "
+        f"{os.path.relpath(picked, ROOT)} for 1, against 3 straight: model_3.pt bit-equal in "
+        f"{fields} tensors ({time.perf_counter() - t0:.1f} s)")
+    return {"runner": runner, "checkpoint": got, "fields": fields}
+
+
+def phase_export(device, root: str, runner, task: str = "k1_dh_stand", rows: int = 64) -> dict:
+    """Phase 7, step 4: ``scripts/export_policy.main`` on the last checkpoint
+    of ``runner``'s run (the resumed run's model_3.pt); ``load_npz`` of the
+    export gives the actions of the runner's
+    ``get_inference_policy`` and its velocity estimates bit for bit on
+    ``rows`` observations of the checkpoint's last step; the port's ONNX
+    runtime and the native runtime (``native/ti5_infer.cc`` built with g++
+    under ``root``) agree with the forward within 2e-4
+    (tests/test_native.py)."""
+    import numpy as np
+    import torch
+
+    from ti5_isaacgym_tpu_torch.algo import networks as nets
+    from ti5_isaacgym_tpu_torch.algo.convert import load_npz
+    from ti5_isaacgym_tpu_torch.export import native, onnx_runtime
+    from ti5_isaacgym_tpu_torch.export.policy import restore_policy_params
+    from ti5_isaacgym_tpu_torch.scripts import export_policy
+
+    t0 = time.perf_counter()
+    run_dir, it = runner.log_dir, runner.iteration_count
+    paths = export_policy.main(["--task", task, "--log_root", os.path.dirname(run_dir),
+                                "--load_run", os.path.basename(run_dir), "--checkpoint", str(it),
+                                "--out", os.path.join(root, "export"), "--device", str(device)])
+    ckpt = os.path.join(run_dir, f"model_{it}.pt")
+    params, _ = restore_policy_params(ckpt)
+    params = {k: v.to(device) for k, v in params.items()}
+    obs = torch.load(ckpt, map_location="cpu", weights_only=True)["env_state"]["obs_hist"]
+    obs = obs[:rows].to(device)
+    with torch.no_grad():
+        want_act = runner.get_inference_policy(params)(obs)
+        want_est = nets.apply(runner.network, params, "estimate_velocity", obs)
+        got_act, got_est = load_npz(paths["npz"], device=device).act_inference(obs)
+    _bit_equal({"actions": got_act, "velocity": got_est},
+               {"actions": want_act, "velocity": want_est}, "load_npz of the export")
+    want = torch.cat([want_act, want_est], dim=-1).cpu().numpy()
+    obs_np = obs.float().cpu().numpy()
+    model = onnx_runtime.load_model(paths["onnx"])    # a batch-1 graph: one row at a time
+    got = np.concatenate([np.concatenate([r["action_mean"], r["est_vel"]], -1) for r in
+                          (onnx_runtime.run_model(model, {"obs": o[None]}) for o in obs_np)])
+    gaps = {"onnx_runtime": float(np.abs(got - want).max())}
+    binary = native.build(os.path.join(root, "native"))
+    for kind in ("npz", "onnx"):
+        got = native.run(binary, paths[kind], obs_np, root)
+        gaps[f"native_{kind}"] = float(np.abs(got - want).max())
+    bad = {k: v for k, v in gaps.items() if not v <= 2e-4}
+    if bad:
+        raise AssertionError(f"runtimes differ from the torch forward by more than 2e-4: {bad}")
+    log(f"export: {task} model_{it}.pt -> npz, manifest, YAML, ONNX; load_npz bit-equal to the "
+        f"runner's policy on {rows} observations of the last step; max |runtime - torch|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (limit 2e-4) ({time.perf_counter() - t0:.1f} s)")
+    return {"paths": paths, "gaps": gaps}
+
+
+def phase_golden(root: str) -> list:
+    """Phase 7, step 5: the port's export of the committed round-5 policy
+    writes ``ti5_dh_policy.onnx`` and ``policy_dh.json`` byte-equal to the
+    committed files, and ``export_controller_yaml(T1EnvCfg())`` the
+    committed ``policy_config.yaml``."""
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.algo.convert import params_from_flat
+    from ti5_isaacgym_tpu_torch.algo.networks import ActorCriticDH
+    from ti5_isaacgym_tpu_torch.configs.t1_dh_stand import T1EnvCfg
+    from ti5_isaacgym_tpu_torch.export.onnx import export_onnx_dh
+    from ti5_isaacgym_tpu_torch.export.policy import export_controller_yaml, export_npz
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "golden")
+    os.makedirs(out, exist_ok=True)
+    with np.load(POLICY) as f:
+        params = params_from_flat({k: f[k] for k in f.files})
+    written = {"ti5_dh_policy.onnx": export_onnx_dh(params, os.path.join(out, "ti5_dh_policy.onnx")),
+               "policy_dh.json": export_npz(ActorCriticDH(num_critic_obs=219), params,
+                                            out)[:-len(".npz")] + ".json",
+               "policy_config.yaml": export_controller_yaml(T1EnvCfg(), out)}
+    for name, path in written.items():
+        with open(path, "rb") as got, open(os.path.join(os.path.dirname(POLICY), name), "rb") as want:
+            if got.read() != want.read():
+                raise AssertionError(f"{name} written by the port differs from the committed one")
+    log(f"golden: {', '.join(written)} byte-equal to eval_round5/final/exported "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return sorted(written)
+
+
+def phase_tasks(device, root: str = PHASE7_ROOT, k1_envs: int = TRAIN_ENVS,
+                flat_envs: int = FLAT_ENVS) -> dict:
+    """Phase 7: K1 and flat T1 through the registry, the CLI resume, the
+    export and the golden bytes."""
+    import shutil
+
+    import torch
+
+    device = torch.device(device)
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for task, n, timed in (("k1_dh_stand", k1_envs, 2), ("t1_flat", flat_envs, 1)):
+        runner = make_task_runner(task, n, device, os.path.join(root, "tasks"))
+        out[task] = phase_task(task, runner, timed, time_kernel_too=(task == "k1_dh_stand"))
+        del runner
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["resume"] = phase_resume(device, root, k1_envs)
+    out["export"] = phase_export(device, root, out["resume"].pop("runner"))
+    out["golden"] = phase_golden(root)
+    return out
 
 
 def main():
@@ -509,43 +852,65 @@ def main():
     import torch
 
     build = phase_build()
-    launches, worst, times, stats = rollout_phases()
+    launches, worst, times, stats, shares = rollout_phases()
     runner = make_runner(TRAIN_ENVS, "cuda")
     train = phase_train(runner)
     del runner
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tasks = phase_tasks("cuda")
+    torch.cuda.synchronize()
     log(f"done: build {build['seconds']:.1f} s, rollout {stats['env_steps_per_s']:.1f} "
-        f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s on {smi}")
+        f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s (T1), "
+        f"{tasks['k1_dh_stand']['env_steps_per_s']:.1f} (K1), "
+        f"{tasks['t1_flat']['env_steps_per_s']:.1f} (t1_flat) on {smi}")
+    configs = [dict(task="t1_dh_stand", num_envs=[NUM_ENVS, TRAIN_ENVS],
+                    bit_equal_share=min(shares + [train["bit_equal_share"]]),
+                    max_abs_err=max(worst, train["worst"]),
+                    launches_per_training_iteration=train["launches"])]
+    for task in ("k1_dh_stand", "t1_flat"):
+        t = tasks[task]
+        configs.append(dict(task=task, num_envs=t["num_envs"],
+                            bit_equal_share=t["bit_equal_share"], max_abs_err=t["worst"],
+                            launches_per_training_iteration=t["launches"],
+                            **{k: v for k, v in t.get("times", {}).items() if k != "host_us"}))
     for line in result_lines(smi, name, torch.cuda.device_count(), launches,
-                             max(worst, train["worst"]), times, train["launches"]):
+                             max(c["max_abs_err"] for c in configs), times, train["launches"],
+                             configs):
         print(line, flush=True)
 
 
 def rollout_phases():
     """Phases 3-5 at NUM_ENVS; their env is freed on return."""
     env, policy, state, obs = make_env(NUM_ENVS, "cuda")
-    worst = phase_compare(env, state, obs, policy)
+    shares = []
+    worst = phase_compare(env, state, obs, policy, shares)
     state, obs, launches, stats = phase_rollout(env, policy, state, obs)
     if launches != STEPS:
         raise AssertionError(f"main path launched the decimation kernel {launches} times, "
                              f"expected {STEPS}")
     times = phase_times(env, state, obs, policy)
-    return launches, worst, times, stats
+    return launches, worst, times, stats, shares
 
 
-def result_lines(smi, name, count, launches, worst, times, train_launches):
+def result_lines(smi, name, count, launches, worst, times, train_launches, configs=()):
     """The last three lines: the kernels' JSON, the nvidia-smi line, the
     contract's result line.  ``ms`` is at NUM_ENVS envs, ``ms_8192_envs`` at
     twice that; ``launches`` counts the rollout of phase 4,
     ``launches_per_training_iteration`` lists the count of each iteration of
-    phase 6; ``max_abs_err`` is the largest gap of phases 3 and 6."""
+    phase 6; ``max_abs_err`` is the largest gap of phases 3, 6 and 7;
+    ``configurations`` has, per task the kernel ran (phases 3-6 for
+    ``t1_dh_stand``, phase 7 for ``k1_dh_stand`` and ``t1_flat``), its
+    widths, the bit-equal share of its comparisons, their largest gap, its
+    launches per training iteration and, for K1, the kernel's times."""
     kernels = {"kernels": [{
         "name": "run_decimation", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "launches_per_training_iteration": train_launches, "max_abs_err": worst,
         "ms": times["ms"], f"ms_{2 * NUM_ENVS}_envs": times["ms_wide"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"], "library_ms": None}]}
+        "bound_by": times["bound_by"], "library_ms": None,
+        "configurations": list(configs)}]}
     return [json.dumps(kernels), smi,
             json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})]
 

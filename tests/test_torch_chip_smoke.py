@@ -10,6 +10,7 @@ import json
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,12 +43,16 @@ def test_phases_run_on_cpu():
 def test_result_lines():
     times = dict(ms=0.2, ms_wide=0.35, host_us=60.0, plain_ms=1900.0, bound_ms=0.0128,
                  bound_by="operations")
+    configs = [dict(task="k1_dh_stand", num_envs=8192, bit_equal_share=1.0, max_abs_err=0.0,
+                    launches_per_training_iteration=[24] * 4, ms=0.3)]
     lines = chip_smoke.result_lines("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100 80GB HBM3", 1,
-                                    24, 1e-3, times, [24, 24])
+                                    24, 1e-3, times, [24, 24], configs)
     kernels = json.loads(lines[0])["kernels"]
     assert set(kernels[0]) == {"name", "route", "source", "replaces", "launches",
                                "launches_per_training_iteration", "max_abs_err", "ms",
-                               "ms_8192_envs", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+                               "ms_8192_envs", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "configurations"}
+    assert kernels[0]["configurations"] == configs
     assert kernels[0]["ms"] == 0.2 and kernels[0]["ms_8192_envs"] == 0.35
     assert kernels[0]["launches_per_training_iteration"] == [24, 24]
     assert os.path.exists(os.path.join(chip_smoke.ROOT, kernels[0]["source"]))
@@ -80,14 +85,19 @@ def test_training_phase_runs_on_cpu(tmp_path):
             chip_smoke._bit_equal(a, other, "a")
 
 
-def test_play_entry_point_and_vec_env_on_cpu():
-    """The headless play CLI and the VecEnv facade at 4 envs on the CPU."""
+def test_play_entry_point_and_vec_env_on_cpu(tmp_path):
+    """The headless play CLI and the VecEnv facade at 4 envs on the CPU; play
+    writes its state panels and robot 0's trajectory to ``tmp_path``."""
     from ti5_isaacgym_tpu_torch.envs.vec_env import VecEnv
     from ti5_isaacgym_tpu_torch.scripts import play
 
     state, stats = play.play(play.get_play_args(
-        ["--num_envs", "4", "--steps", "2", "--random_policy", "--device", "cpu"]))
+        ["--num_envs", "4", "--steps", "2", "--random_policy", "--device", "cpu",
+         "--out_dir", str(tmp_path), "--export_traj", str(tmp_path / "traj.npz")]))
     assert bool(torch.isfinite(state.phys.base_pos).all()) and stats["env_steps_per_s"] > 0
+    assert (tmp_path / "eval_states.png").exists()
+    with np.load(tmp_path / "traj.npz") as f:
+        assert f["qpos"].shape == (2, 3 + 4 + 12)
     env = play.T1DHStandEnv(play.make_env_cfg(4), seed=0, device="cpu")
     venv = VecEnv(env, seed=0)
     obs, priv = venv.reset()
@@ -126,3 +136,44 @@ def test_events_and_heading_paths_run_on_cpu():
             assert bool(torch.isfinite(state.phys.qvel).all()) and bool(torch.isfinite(rew).all())
         assert pushed and applied
         assert bool((state.commands[:, 2].abs() <= 1.0).all())
+
+
+def test_tasks_phase_runs_on_cpu(tmp_path, monkeypatch):
+    """Phase 7 at 16 envs with the registered tasks cut to a 2x2 terrain and
+    4 steps per env, through the kernel path's plain version: K1 and flat T1
+    through the registry (4 counted plain runs per iteration, the cells
+    against gather_contact_cells), the CLI resume bit-equal to a straight
+    run, the export checked against the runner's policy, the ONNX runtime
+    and the native runtime, and the golden round-5 bytes."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    for name in task_registry.task_names():
+        cls, env_cfg, train_cfg = task_registry._get(name)
+        env_cfg = dataclasses.replace(
+            env_cfg,
+            terrain=dataclasses.replace(env_cfg.terrain, num_rows=2, num_cols=2,
+                                        border_size=2.0),
+            sim=dataclasses.replace(env_cfg.sim, megakernel_interpret=True))
+        train_cfg = dataclasses.replace(train_cfg, runner=dataclasses.replace(
+            train_cfg.runner, num_steps_per_env=4))
+        monkeypatch.setitem(task_registry._tasks, name, (cls, env_cfg, train_cfg))
+    out = chip_smoke.phase_tasks("cpu", root=str(tmp_path), k1_envs=16, flat_envs=16)
+    k1, flat = out["k1_dh_stand"], out["t1_flat"]
+    assert k1["launches"] == [4] * 4 and flat["launches"] == [4] * 3
+    assert k1["worst"] == 0.0 and k1["bit_equal_share"] == 1.0
+    assert k1["cells"]["same_cell"] == k1["cells"]["points"] == 16 * 16
+    assert k1["cells"]["reciprocal_moves"] == 0           # the CPU divides
+    assert flat["cells"]["same_cell"] is None and flat["cells"]["points"] == 32 * 16
+    assert out["resume"]["fields"] > 100
+    assert max(out["export"]["gaps"].values()) <= 2e-4
+    assert out["golden"] == ["policy_config.yaml", "policy_dh.json", "ti5_dh_policy.onnx"]
+
+
+def test_play_refuses_unported_viewers():
+    from ti5_isaacgym_tpu_torch.scripts import play
+
+    for flags in (["--video", "x.mp4"], ["--live"], ["--teleop", "auto"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+            play.play(play.get_play_args(flags + ["--device", "cpu", "--random_policy"]))

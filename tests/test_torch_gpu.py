@@ -5,7 +5,11 @@ version on one decimation of the full task at 16 and at 4096 envs, each also
 with one env fewer (a ragged last block) and with a seeded external wrench,
 both flag settings (the tolerances of chip_smoke.py); check that the plain
 version divides as the kernel does; check that a rollout launches the kernel
-once per policy step; and run chip_smoke.py's training phase at 1024 envs.
+once per policy step; run chip_smoke.py's training phase at 1024 envs;
+run a K1 training iteration through the registry at 1024 envs (phase 7's
+checks: 24 launches, the kernel bit-equal to its plain version, the cells
+equal to ``gather_contact_cells``); and export a checkpoint of the train CLI
+and hold ``load_npz`` of it bit-equal to the runner's policy on the card.
 Without a card they skip; whether a card is present
 is decided inside the fixture.  On the card:
 
@@ -69,3 +73,22 @@ def test_plain_version_divides_like_the_kernel(card):
         np.testing.assert_array_equal(got, x / np.float32(c))
         got = _over(c, torch.from_numpy(x).to(card)).cpu().numpy()
         np.testing.assert_array_equal(got, np.float32(c) / x)
+
+
+def test_k1_training_iteration_on_the_card(card, tmp_path):
+    runner = chip_smoke.make_task_runner("k1_dh_stand", 1024, card, str(tmp_path))
+    assert runner.env.use_kernel_path and runner.env.model.ncp == 16
+    out = chip_smoke.phase_task("k1_dh_stand", runner, 1)
+    assert out["launches"] == [24] * 3 and out["bit_equal_share"] == 1.0
+    assert out["cells"]["same_cell"] == out["cells"]["points"] == 16 * 1024
+
+
+def test_export_round_trip_on_the_card(card, tmp_path):
+    import torch
+
+    from ti5_isaacgym_tpu_torch.scripts import train
+
+    runner = train.main(["--task", "k1_dh_stand", "--num_envs", "256", "--max_iterations", "1",
+                         "--log_root", str(tmp_path / "runs")])
+    out = chip_smoke.phase_export(torch.device(card), str(tmp_path), runner)
+    assert max(out["gaps"].values()) <= 2e-4

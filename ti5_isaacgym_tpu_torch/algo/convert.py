@@ -10,6 +10,9 @@ or :class:`.networks.ActorCritic`:
   (out, in, k);
 * the long-history head's ``Dense_0/1`` -> ``fc.layers.0/1``.
 
+:func:`flat_from_params` is its inverse (for the export: the npz, the ONNX
+file), with the keys in the order of an npz the JAX package exports.
+
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` (params,
 optax's Adam moments and count, the carried learning rate, the update count)
 into a :class:`.ppo.TrainState` through the same mapping, so that a JAX
@@ -62,6 +65,51 @@ def params_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             a = a.transpose(2, 1, 0) if kind == "Conv" else a.T
         out[name] = torch.from_numpy(np.array(a, order="C"))
     return out
+
+
+def _flax_key(name: str) -> tuple:
+    """The inverse of :func:`_key`: a ``state_dict`` name -> (flat flax key,
+    its layer kind)."""
+    if name == "std":
+        return "std", None
+    parts = name.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else "bias"
+    if parts[:2] == ["long_history", "convs"]:
+        return f"long_history/Conv_{parts[2]}/{leaf}", "Conv"
+    if parts[:2] == ["long_history", "fc"]:
+        return f"long_history/Dense_{parts[3]}/{leaf}", "Dense"
+    return f"{parts[0]}/Dense_{parts[2]}/{leaf}", "Dense"
+
+
+def flat_from_params(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's params (a ``state_dict`` of :class:`ActorCriticDH` or
+    :class:`ActorCritic`, on any device) -> flat flax params in flax's
+    layouts (``Dense_i/kernel`` (in, out), ``Conv_i/kernel`` (k, in, out)),
+    keyed in the order of an npz the JAX package exports from a checkpoint
+    (keys sorted level by level).  Only transposes and copies: the values
+    round-trip through :func:`params_from_flat` bit for bit."""
+    out = {}
+    for name, v in params.items():
+        key, kind = _flax_key(name)
+        a = v.detach().to("cpu", torch.float32).numpy()
+        if key.endswith("/kernel"):
+            a = a.transpose(2, 1, 0) if kind == "Conv" else a.T
+        out[key] = np.array(a, order="C")
+    return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}
+
+
+def nest_flat(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``{"actor/Dense_0/kernel": a, ...}`` -> ``{"actor": {"Dense_0":
+    {"kernel": a}}, ...}`` (flax's nested layout, without the ``params``
+    root), in the order of ``flat``."""
+    tree: Dict[str, Any] = {}
+    for k, v in flat.items():
+        node = tree
+        *path, leaf = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def train_state_from_jax(params, opt_state, lr, update_count, device="cpu"):

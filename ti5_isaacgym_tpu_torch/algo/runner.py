@@ -487,8 +487,14 @@ class OnPolicyRunner:
              params_only: bool = False) -> RunnerCarry:
         """Restore a :meth:`save` checkpoint into ``carry`` (a fresh
         :meth:`init_carry` when None).  ``params_only`` takes the params, lr
-        and iteration and leaves the env alone (any env count)."""
+        and iteration and leaves the env alone (any env count); a full restore
+        needs the checkpoint's env count and raises on another."""
         d = torch.load(path, map_location="cpu", weights_only=True)
+        saved_n = int(d["cur_reward_sum"].shape[0])
+        if not params_only and saved_n != self.env.num_envs:
+            raise ValueError(f"checkpoint {path} holds {saved_n} envs but the env has "
+                             f"{self.env.num_envs}: resume with --num_envs {saved_n}, or "
+                             "load the params only")
         if carry is None:
             carry = self.init_carry()
         dev = self.device

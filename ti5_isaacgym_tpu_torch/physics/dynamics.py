@@ -187,3 +187,17 @@ def aba(model: RobotModel, params: DynamicsParams, frames: BodyFrames,
 
     a_base = torch.cat([a_a[0], a_l[0] + sp.mtv(rot[0], g)], dim=-1)
     return a_base, torch.stack(qdd, dim=-1)
+
+
+def integrate(base_pos, base_quat, base_vel, qpos, qvel, a_base, qdd, dt: float):
+    """Semi-implicit Euler: velocities first, then the configuration; the
+    base orientation by the body-frame exponential map."""
+    base_vel_n = base_vel + dt * a_base
+    qvel_n = qvel + dt * qdd
+    w_b = base_vel_n[..., :3]
+    ang = torch.linalg.vector_norm(w_b, dim=-1) + 1e-12
+    dq = sp.quat_from_axis_angle(w_b / ang[..., None], ang * dt)
+    base_quat_n = sp.quat_normalize(sp.quat_mul(base_quat, dq))
+    base_pos_n = base_pos + dt * sp.quat_rotate(base_quat_n, base_vel_n[..., 3:])
+    qpos_n = qpos + dt * qvel_n
+    return base_pos_n, base_quat_n, base_vel_n, qpos_n, qvel_n

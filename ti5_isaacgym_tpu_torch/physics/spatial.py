@@ -77,6 +77,22 @@ def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, both (...,4) wxyz."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate v (...,3) by q (...,4): R(q) @ v."""
     w = q[..., 0:1]

@@ -1,9 +1,9 @@
 """CLI argument parsing and seeding (port of ``ti5_isaacgym_tpu/utils/helpers.py``).
 
 The flags of the JAX CLI are all parsed.  Those of features the port does
-not have yet raise an error that names the ROADMAP item that will port
-them; none is ignored.  ``--device`` (default ``cuda``) picks the card or
-the CPU.
+not have yet (data parallelism) raise an error that names the ROADMAP item
+that will port them; none is ignored.  ``--device`` (default ``cuda``) picks
+the card or the CPU.
 """
 from __future__ import annotations
 
@@ -18,10 +18,6 @@ NOT_PORTED = {
     "coordinator": "item 6, data parallelism",
     "num_processes": "item 6, data parallelism",
     "process_id": "item 6, data parallelism",
-    "profile": "item 2, the train CLI's profiler trace",
-    "resume": "item 2, the registry's resume_path",
-    "load_run": "item 2, the registry's resume_path",
-    "checkpoint": "item 2, the registry's resume_path",
 }
 
 
@@ -47,7 +43,8 @@ def get_args(argv=None):
     p.add_argument("--log_root", type=str, default=None)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--n_devices", type=int, default=None)
-    p.add_argument("--profile", type=str, default=None, metavar="DIR")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of iterations 3-5 into DIR")
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
