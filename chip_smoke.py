@@ -6,8 +6,9 @@
 Drives the port's paths at the task's full width (the 20x20 rough-terrain
 grid, full domain randomization, action/dof/IMU lag, the decimation kernel
 on): the ``t1_dh_stand`` policy rollout at 4096 envs, the DH-PPO training
-iteration at 8192 envs, and every registered task through the task
-registry with a CLI resume and the deployment export.  Phases, each
+iteration at 8192 envs, every registered task through the task
+registry with a CLI resume and the deployment export, and data-parallel
+training over two ranks.  Phases, each
 printing one line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
@@ -57,11 +58,31 @@ printing one line with its elapsed seconds:
    with g++ under ``build/``) within 2e-4; the export of the committed
    round-5 policy byte-equal to the committed ONNX, manifest and YAML.
 
+8. data parallelism, under ``build/ti5_torch_smoke/phase8``, through
+   ``parallel.trainer.spawn_local`` (the kernel is built by then): (a) one
+   rank in a world of 1 over NCCL, T1 at 8192 envs from seed 5: a
+   ``ShardedRunner`` iteration, its collectives running, bit-equal to the
+   plain runner's from the same carry, with the all-reduces and launches
+   counted; (b) two ranks of 4096 envs each, over NCCL on two cards where
+   there are two, else both on the one card over gloo (tensors on the
+   card): the full-batch update of one rollout's trajectory split in
+   halves against the single-process update of the whole of it and the
+   GAE moments against ``compute_gae`` on all of it
+   (tests/test_parallel.py's limits), then 1 warm, 2 timed and 1 split
+   iteration, 24 launches per rank in each, the train state bit-equal
+   across the ranks after each, the global env-steps/s and each rank's
+   split and peak memory, the ranks' env generators drawing different
+   values, and only rank 0 writing ``model_4.pt``, which loads back through
+   ``params_only``; last, the time of one update buffer's all-reduce (in
+   (a) too) and of one rollout on both ranks with the curriculum's
+   all-reduce off.
+
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line.  Imports only the port, torch, numpy and the standard library; needs
-no network; writes only under ``build/``.  The kernels' JSON line lists the
-one kernel, with a ``configurations`` entry per task it ran on.
+no network; writes only under ``build/`` (and phase 8's rendezvous file in a
+temporary directory).  The kernels' JSON line lists the one kernel, with a
+``configurations`` entry per task it ran on and one for phase 8.
 """
 from __future__ import annotations
 
@@ -101,6 +122,7 @@ TOLERANCES = {"state": (2e-4, 0.0), "anchors": (2e-4, 0.0), "forces": (2.0, 2e-3
 OUTPUTS = tuple(TOLERANCES)
 CHECKPOINT = os.path.join(ROOT, "build", "ti5_torch_smoke", "model_smoke.pt")
 PHASE7_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase7")
+PHASE8_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase8")
 FLAT_ENVS = 1024       # t1_flat's own width
 T0 = time.perf_counter()
 
@@ -325,11 +347,12 @@ def phase_times(env, state, obs, policy, reps: int = 50):
 
 
 def make_runner(num_envs: int, device, terrain_rows=None, steps=None,
-                kernel_path_on_cpu: bool = False):
+                kernel_path_on_cpu: bool = False, log_dir=None):
     """The training runner on the full task at ``num_envs`` with
-    ``T1TrainCfg``'s defaults; ``terrain_rows``, ``steps`` (per env and
-    iteration) and ``kernel_path_on_cpu`` (the kernel path's plain version
-    on the CPU) cut a CPU rehearsal down."""
+    ``T1TrainCfg``'s defaults, logging to ``log_dir`` if given;
+    ``terrain_rows``, ``steps`` (per env and iteration) and
+    ``kernel_path_on_cpu`` (the kernel path's plain version on the CPU) cut
+    a CPU rehearsal down."""
     import dataclasses
 
     from ti5_isaacgym_tpu_torch.algo.runner import OnPolicyRunner
@@ -348,7 +371,7 @@ def make_runner(num_envs: int, device, terrain_rows=None, steps=None,
         tcfg = dataclasses.replace(tcfg, runner=dataclasses.replace(
             tcfg.runner, num_steps_per_env=steps))
     env = T1DHStandEnv(cfg, seed=tcfg.seed, device=device)
-    return OnPolicyRunner(env, cfg, tcfg, verbose=False)
+    return OnPolicyRunner(env, cfg, tcfg, log_dir=log_dir, verbose=False)
 
 
 def _launch_count(device) -> int:
@@ -847,6 +870,314 @@ def phase_tasks(device, root: str = PHASE7_ROOT, k1_envs: int = TRAIN_ENVS,
     return out
 
 
+# --- phase 8: data parallelism -------------------------------------------------
+
+
+def expected_collectives(runner) -> dict:
+    """The all-reduces of one training iteration by name: the command
+    curriculum's sums once per step, the GAE moments once, one gradient+KL
+    buffer per minibatch, the metrics once."""
+    cfg = runner.ppo_cfg
+    return {"curriculum": runner.num_steps_per_env, "gae": 1,
+            "update": cfg.num_learning_epochs * cfg.num_mini_batches, "metrics": 1}
+
+
+def phase8_world1(rank, device, num_envs, terrain_rows, steps, kernel_path_on_cpu):
+    """Phase 8 (a), the one rank of a world of 1: a ``ShardedRunner``
+    iteration against the plain runner's from the same initial carry, bit
+    for bit (params, Adam, lr, env state, generators, metrics as float32),
+    with its collectives and kernel launches counted."""
+    import torch.distributed as dist
+
+    from ti5_isaacgym_tpu_torch.algo.runner import carry_to_dict
+    from ti5_isaacgym_tpu_torch.parallel.trainer import ShardedRunner, shard_carry
+
+    runner = make_runner(num_envs, device, terrain_rows, steps, kernel_path_on_cpu)
+    dev = runner.device
+    carry0 = runner.init_carry()
+    local = shard_carry(carry0, 0, 1, runner.seed)       # before carry0's generators move
+    c1, m1 = runner._iter_fn(carry0)
+    sharded = ShardedRunner(runner)
+    _reset_launch_count()
+    c2, m2 = sharded.iteration(local)
+    _sync(dev)
+    launches, counts = _launch_count(dev), dict(sharded.reduce.counts)
+    m1 = {k: v.float() for k, v in m1.items()}     # all-reduced metrics are float32
+    fields = _bit_equal({"carry": carry_to_dict(c1), "metrics": m1},
+                        {"carry": carry_to_dict(c2), "metrics": m2},
+                        "world size 1 against the plain runner")
+    if counts != expected_collectives(runner) or launches != runner.num_steps_per_env:
+        raise AssertionError(f"world size 1: collectives {counts}, kernel launches {launches}; "
+                             f"expected {expected_collectives(runner)} and "
+                             f"{runner.num_steps_per_env}")
+    return {"backend": dist.get_backend(), "device": str(dev), "fields": fields,
+            "counts": counts, "launches": launches,
+            "all_reduce_ms": time_gradient_all_reduce(sharded)}
+
+
+def time_gradient_all_reduce(sharded, reps: int = 8) -> float:
+    """ms per all-reduce of one update buffer (the network's float32 params
+    plus the KL), the mean of ``reps`` after one warm, synchronised and at a
+    barrier on every rank before and after; uncounted."""
+    import torch
+
+    from ti5_isaacgym_tpu_torch.parallel.trainer import coordination_barrier
+
+    dev = sharded.runner.device
+    size = sum(p.numel() for p in sharded.runner.network.parameters()) + 1
+    buf = torch.zeros(size, device=dev)
+    sharded.reduce.all_reduce_(buf)
+    _sync(dev)
+    coordination_barrier("all_reduce_timing")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sharded.reduce.all_reduce_(buf)
+    _sync(dev)
+    coordination_barrier("all_reduce_timed")
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _gap(got, want, atol, rtol, what):
+    """The largest |got - want|; raises where it exceeds atol + rtol |want|."""
+    err = (got - want).abs()
+    if bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{what}: off by {float(err.max()):.3g} (atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def fullbatch_check(runner, group, carry):
+    """The full-batch update (1 epoch x 1 minibatch, the samples in order)
+    of this rank's half of the trajectory of one rollout from ``carry``
+    (the global initial carry), its gradients and KL averaged over
+    ``group``, against the single-process update of the whole trajectory
+    (rank 0 computes it): the averaged gradients and params atol 1e-5 rtol
+    1e-3 (a gradient summed over the ranks, not averaged, is off by itself;
+    Adam's first step, about lr x its sign, would not show it), the four
+    losses rtol 2e-4 (the surrogate loss also atol 1e-6), lr rtol 1e-6
+    (tests/test_parallel.py:77-89); and the ranks' GAE
+    moments: returns and normalised advantages against ``compute_gae`` on
+    the whole trajectory, atol 1e-5 rtol 1e-5 (:246-248).  Returns the
+    largest gaps (rank 0) and the ranks' stats."""
+    import dataclasses
+
+    import torch
+
+    from ti5_isaacgym_tpu_torch.algo.ppo import PPO, mean_grads_
+    from ti5_isaacgym_tpu_torch.algo.rollout import Transition, compute_gae, flatten_batch
+
+    cfg = dataclasses.replace(runner.ppo_cfg, num_learning_epochs=1, num_mini_batches=1)
+    traj, after, _ = runner.rollout(carry)
+    last = runner.alg.value(carry.ts.params, after.priv_obs)
+    n = last.shape[0] // group.size
+    cols = slice(group.rank * n, (group.rank + 1) * n)
+    local = Transition(*(x[:, cols] for x in traj))
+    ret, adv = compute_gae(local, last[cols], cfg.gamma, cfg.lam, group=group)
+    def in_order(t):
+        return torch.arange(t.values.numel(), device=last.device)[None]
+
+    def grads(alg, t, r, a):
+        _, _, g = alg.loss_and_grads(carry.ts.params, flatten_batch(t), r.reshape(-1),
+                                     a.reshape(-1))
+        return g
+
+    alg = PPO(cfg, runner.network, group=group)
+    g = grads(alg, local, ret, adv)
+    mean_grads_(group, list(g.values()), torch.zeros((), device=last.device))
+    ts, m = alg.update(carry.ts, local, ret, adv, indices=in_order(local))
+    keys = ("value_loss", "surrogate_loss", "estimator_loss", "kl", "lr")
+    stats = group.mean_(torch.stack([m[k] for k in keys]), "stats")
+    ret1, adv1 = compute_gae(traj, last, cfg.gamma, cfg.lam)
+    gaps = {"returns": _gap(ret, ret1[:, cols], 1e-5, 1e-5, "GAE returns"),
+            "advantages": _gap(adv, adv1[:, cols], 1e-5, 1e-5, "normalised advantages")}
+    if group.rank == 0:
+        alg1 = PPO(cfg, runner.network)
+        gaps["grads"] = max(_gap(g[k], v, 1e-5, 1e-3, f"full-batch gradient, {k}")
+                            for k, v in grads(alg1, traj, ret1, adv1).items())
+        ts1, m1 = alg1.update(carry.ts, traj, ret1, adv1, indices=in_order(traj))
+        gaps["params"] = max(_gap(ts.params[k], v, 1e-5, 1e-3, f"full-batch update, {k}")
+                             for k, v in ts1.params.items())
+        for i, k in enumerate(keys):
+            # the one step starts at the behaviour policy (ratio 1), so the
+            # surrogate loss is minus the mean of the normalised advantages:
+            # zero up to the rounding of a mean over the whole batch
+            atol = 1e-6 if k == "surrogate_loss" else 0.0
+            gaps[k] = _gap(stats[i], m1[k], atol, 1e-6 if k == "lr" else 2e-4,
+                           f"full-batch update, {k}")
+    return gaps, stats.tolist()
+
+
+def phase8_world2(rank, device, num_envs, terrain_rows, steps, kernel_path_on_cpu, root):
+    """Phase 8 (b), one of 2 ranks of ``num_envs`` global envs: the
+    full-batch check; then training, 1 warm + 2 timed + 1 split iteration,
+    each with ``steps`` kernel launches on this rank, its collectives
+    counted and params, Adam and lr bit-equal across the ranks; the lead-only
+    save, loaded back through ``params_only``; the time of an update
+    buffer's all-reduce and of one rollout without the curriculum's
+    all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from ti5_isaacgym_tpu_torch.parallel.trainer import (ReduceGroup, ShardedRunner, _generator,
+                                                         coordination_barrier, shard_carry)
+
+    runner = make_runner(num_envs, device, terrain_rows, steps, kernel_path_on_cpu)
+    dev = runner.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    # ShardedRunner.init_carry in two steps: the single-process initial
+    # carry (the same on every rank), then this rank's part of it, taken
+    # before the full-batch check's rollout moves the carry's generators
+    t0 = time.perf_counter()
+    carry0 = runner.init_carry()
+    carry = shard_carry(carry0, dist.get_rank(), dist.get_world_size(), runner.seed)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    gaps, stats = fullbatch_check(runner, ReduceGroup(), carry0)
+    del carry0
+    check_peak = None
+    if dev.type == "cuda":
+        check_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    sharded = ShardedRunner(runner)
+    gen = _generator(carry.env_state.rng)
+    draws = torch.rand(8, generator=gen, device=gen.device).tolist()
+    params0 = {k: v.clone() for k, v in carry.ts.params.items()}
+    want = expected_collectives(runner)
+    launches, replicated, iter_ms, borders = [], [], [], []
+
+    def mark(_name):
+        _sync(dev)
+        borders.append(time.perf_counter())
+
+    for i in range(4):                          # warm, 2 timed, split
+        _reset_launch_count()
+        sharded.reduce.counts.clear()
+        _sync(dev)
+        coordination_barrier("phase8_iteration")
+        t0 = time.perf_counter()
+        carry, metrics = sharded.iteration(carry, mark if i == 3 else None)
+        _sync(dev)
+        coordination_barrier("phase8_iteration_done")
+        iter_ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(_launch_count(dev))
+        if launches[-1] != runner.num_steps_per_env or dict(sharded.reduce.counts) != want:
+            raise AssertionError(f"rank {rank}, iteration {i}: {launches[-1]} kernel launches, "
+                                 f"collectives {dict(sharded.reduce.counts)}; expected "
+                                 f"{runner.num_steps_per_env} and {want}")
+        for k, v in metrics.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"rank {rank}: training metric {k} is not finite: {v}")
+        replicated.append(sharded.check_replicated(carry))
+        if replicated[-1] != (0, 0.0):
+            raise AssertionError(f"rank {rank}, iteration {i}: the train state differs across "
+                                 f"ranks in {replicated[-1][0]} values (max {replicated[-1][1]})")
+    split = [1e3 * (b - a) for a, b in zip([t0] + borders[:2], borders)]
+    moved = max(float((carry.ts.params[k] - params0[k]).abs().max()) for k in params0)
+    if not moved > 0:
+        raise AssertionError("training did not move the parameters")
+    path = sharded.save(carry, path=os.path.join(root, "model_4.pt"), keep_last=0)
+    coordination_barrier("phase8_saved")
+    written = sorted(os.listdir(root))
+    if written != ["model_4.pt"] or (path is None) != (rank != 0):
+        raise AssertionError(f"rank {rank}: save returned {path}; {root} holds {written}, "
+                             "expected the lead's model_4.pt alone")
+    loaded = runner.load(os.path.join(root, "model_4.pt"), carry=carry, params_only=True)
+    _bit_equal(loaded.ts.params, carry.ts.params, "params_only load of the lead's checkpoint")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    all_reduce_ms = time_gradient_all_reduce(sharded)
+    # one more rollout on both ranks at once with the curriculum's
+    # all-reduce off: what that per-step wait on the other rank costs
+    runner.env.group = None
+    _sync(dev)
+    coordination_barrier("phase8_rollout")
+    t0 = time.perf_counter()
+    runner.rollout(carry)
+    _sync(dev)
+    coordination_barrier("phase8_rollout_done")
+    rollout_alone_ms = 1e3 * (time.perf_counter() - t0)
+    runner.env.group = sharded.reduce
+    return {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+            "num_envs": sharded.num_envs,
+            "init_s": init_s, "iter_ms": iter_ms, "split_ms": split, "launches": launches,
+            "counts": want, "replicated": replicated, "gaps": gaps, "stats": stats,
+            "draws": draws, "moved": moved, "peak_bytes": peak, "check_peak_bytes": check_peak,
+            "all_reduce_ms": all_reduce_ms, "rollout_alone_ms": rollout_alone_ms}
+
+
+def parallel_configuration(par: dict) -> dict:
+    """Phase 8's entry of the kernels line's ``configurations``: T1 over 2
+    ranks, the launches of each rank's iterations."""
+    ranks = par["ranks"]
+    return dict(task="t1_dh_stand", world_size=len(ranks), backend=par["backend"],
+                devices=par["devices"], num_envs_per_rank=ranks[0]["num_envs"],
+                launches_per_training_iteration=[r["launches"] for r in ranks],
+                collectives_per_training_iteration=ranks[0]["counts"],
+                ms_per_training_iteration=par["ms_per_iteration"],
+                env_steps_per_s=par["env_steps_per_s"],
+                update_all_reduce_ms=par["ranks"][0]["all_reduce_ms"])
+
+
+def phase_parallel(device="cuda", num_envs: int = TRAIN_ENVS, terrain_rows=None, steps=None,
+                   kernel_path_on_cpu: bool = False, root: str = PHASE8_ROOT) -> dict:
+    """Phase 8: data parallelism through ``parallel.trainer.spawn_local``,
+    (a) world size 1 (NCCL on the card, gloo on the CPU) and (b) world size 2
+    at ``num_envs`` global envs: NCCL on two cards where there are two, else
+    both ranks on the one card (or the CPU) over gloo with the tensors on
+    the device.  A rank's failure fails the phase."""
+    import shutil
+
+    import torch
+
+    from ti5_isaacgym_tpu_torch.parallel.trainer import spawn_local
+
+    t_start = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cuda = torch.device(device).type == "cuda"
+    cut = (num_envs, terrain_rows, steps, kernel_path_on_cpu)
+    (one,) = spawn_local(phase8_world1, ["cuda:0" if cuda else "cpu"],
+                         "nccl" if cuda else "gloo", cut)
+    log(f"parallel (a): world size 1 over {one['backend']} on {one['device']}, T1 at "
+        f"{num_envs} envs from seed {SEED}: a ShardedRunner iteration bit-equal to the plain "
+        f"runner's in {one['fields']} tensors; collectives per iteration {one['counts']} "
+        f"({sum(one['counts'].values())}); kernel launches {one['launches']}; an update "
+        f"buffer's all-reduce {one['all_reduce_ms']:.3f} ms")
+    if cuda and torch.cuda.device_count() >= 2:
+        devices, backend = ["cuda:0", "cuda:1"], "nccl"
+    else:
+        devices, backend = ["cuda:0" if cuda else "cpu"] * 2, "gloo"
+    ranks = spawn_local(phase8_world2, devices, backend, cut + (root,))
+    if ranks[0]["draws"] == ranks[1]["draws"]:
+        raise AssertionError("the two ranks' env generators give the same first values")
+    gaps = ranks[0]["gaps"]
+    spr = max(sum(r["iter_ms"][1:3]) / 2 for r in ranks)
+    steps_per_iter = (steps or 24) * num_envs
+    env_steps_per_s = steps_per_iter / (spr / 1e3)
+    log(f"parallel (b): world size 2 over {backend} on {devices}, "
+        f"{ranks[0]['num_envs']} envs per rank: full-batch update against the single "
+        f"process, max gaps " + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f"; {spr:.1f} ms per iteration ({env_steps_per_s:.1f} global env-steps/s; mean of 2 "
+        f"after 1 warm, synchronised and at a barrier on both ranks); an update buffer's "
+        f"all-reduce {ranks[0]['all_reduce_ms']:.3f} ms")
+    for r in ranks:
+        peak = (f"{r['peak_bytes'] / 2**30:.2f} GiB in training, "
+                f"{r['check_peak_bytes'] / 2**30:.2f} GiB in the full-batch check"
+                if r["peak_bytes"] is not None else "not measured (CPU)")
+        log(f"parallel (b) rank {r['rank']} on {r['device']}: iterations "
+            + ", ".join(f"{t:.1f}" for t in r["iter_ms"]) + " ms, split rollout "
+            f"{r['split_ms'][0]:.1f} / GAE {r['split_ms'][1]:.1f} / update "
+            f"{r['split_ms'][2]:.1f} ms (a rollout without the curriculum's all-reduce "
+            f"{r['rollout_alone_ms']:.1f} ms), kernel launches {r['launches']}, collectives per "
+            f"iteration {r['counts']}, train state bit-equal across ranks after every "
+            f"iteration, init {r['init_s']:.1f} s, peak memory {peak}")
+    log(f"parallel: only rank 0 wrote model_4.pt, params_only bit-equal to its params; the "
+        f"ranks' env generators start {ranks[0]['draws'][:2]} and {ranks[1]['draws'][:2]} "
+        f"({time.perf_counter() - t_start:.1f} s)")
+    return {"world1": one, "ranks": ranks, "backend": backend, "devices": devices,
+            "ms_per_iteration": spr, "env_steps_per_s": env_steps_per_s}
+
+
 def main():
     smi, name = phase_device()
     import torch
@@ -860,10 +1191,13 @@ def main():
     torch.cuda.empty_cache()
     tasks = phase_tasks("cuda")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    par = phase_parallel("cuda")
     log(f"done: build {build['seconds']:.1f} s, rollout {stats['env_steps_per_s']:.1f} "
         f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s (T1), "
         f"{tasks['k1_dh_stand']['env_steps_per_s']:.1f} (K1), "
-        f"{tasks['t1_flat']['env_steps_per_s']:.1f} (t1_flat) on {smi}")
+        f"{tasks['t1_flat']['env_steps_per_s']:.1f} (t1_flat), "
+        f"{par['env_steps_per_s']:.1f} (T1 over 2 ranks) on {smi}")
     configs = [dict(task="t1_dh_stand", num_envs=[NUM_ENVS, TRAIN_ENVS],
                     bit_equal_share=min(shares + [train["bit_equal_share"]]),
                     max_abs_err=max(worst, train["worst"]),
@@ -874,9 +1208,10 @@ def main():
                             bit_equal_share=t["bit_equal_share"], max_abs_err=t["worst"],
                             launches_per_training_iteration=t["launches"],
                             **{k: v for k, v in t.get("times", {}).items() if k != "host_us"}))
-    for line in result_lines(smi, name, torch.cuda.device_count(), launches,
-                             max(c["max_abs_err"] for c in configs), times, train["launches"],
-                             configs):
+    worst = max(c["max_abs_err"] for c in configs)
+    configs.append(parallel_configuration(par))
+    for line in result_lines(smi, name, torch.cuda.device_count(), launches, worst, times,
+                             train["launches"], configs):
         print(line, flush=True)
 
 
@@ -902,7 +1237,8 @@ def result_lines(smi, name, count, launches, worst, times, train_launches, confi
     ``configurations`` has, per task the kernel ran (phases 3-6 for
     ``t1_dh_stand``, phase 7 for ``k1_dh_stand`` and ``t1_flat``), its
     widths, the bit-equal share of its comparisons, their largest gap, its
-    launches per training iteration and, for K1, the kernel's times."""
+    launches per training iteration and, for K1, the kernel's times; and
+    phase 8's entry (:func:`parallel_configuration`)."""
     kernels = {"kernels": [{
         "name": "run_decimation", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

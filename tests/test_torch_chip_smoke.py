@@ -43,8 +43,15 @@ def test_phases_run_on_cpu():
 def test_result_lines():
     times = dict(ms=0.2, ms_wide=0.35, host_us=60.0, plain_ms=1900.0, bound_ms=0.0128,
                  bound_by="operations")
+    rank = dict(num_envs=4096, launches=[24] * 4, all_reduce_ms=3.0,
+                counts={"curriculum": 24, "gae": 1, "update": 8, "metrics": 1})
+    parallel = chip_smoke.parallel_configuration(dict(
+        ranks=[rank, rank], backend="gloo", devices=["cuda:0", "cuda:0"],
+        ms_per_iteration=2000.0, env_steps_per_s=98304.0))
+    assert parallel["world_size"] == 2 and parallel["num_envs_per_rank"] == 4096
+    assert parallel["launches_per_training_iteration"] == [[24] * 4, [24] * 4]
     configs = [dict(task="k1_dh_stand", num_envs=8192, bit_equal_share=1.0, max_abs_err=0.0,
-                    launches_per_training_iteration=[24] * 4, ms=0.3)]
+                    launches_per_training_iteration=[24] * 4, ms=0.3), parallel]
     lines = chip_smoke.result_lines("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100 80GB HBM3", 1,
                                     24, 1e-3, times, [24, 24], configs)
     kernels = json.loads(lines[0])["kernels"]
@@ -83,6 +90,28 @@ def test_training_phase_runs_on_cpu(tmp_path):
                   {"x": {"y": torch.zeros(3, dtype=torch.float64)}, "g": torch.tensor(1)}):
         with pytest.raises(AssertionError, match="not bit-equal"):
             chip_smoke._bit_equal(a, other, "a")
+
+
+def test_parallel_phase_runs_on_cpu(tmp_path):
+    """Phase 8 at 16 global envs (2x2 terrain, 4 steps per env) through the
+    kernel path's plain version, on CPU ranks over gloo: world size 1
+    bit-equal to the plain runner with 4 + 1 + 8 + 1 collectives; 2 ranks
+    of 8 envs, the full-batch gradients, update and GAE within their limits, 4 counted
+    plain runs per rank in each of 4 iterations, the train state bit-equal
+    across ranks, the lead's checkpoint alone."""
+    out = chip_smoke.phase_parallel("cpu", num_envs=16, terrain_rows=2, steps=4,
+                                    kernel_path_on_cpu=True, root=str(tmp_path))
+    counts = {"curriculum": 4, "gae": 1, "update": 8, "metrics": 1}
+    assert out["world1"]["counts"] == counts and out["world1"]["launches"] == 4
+    assert out["backend"] == "gloo" and out["devices"] == ["cpu", "cpu"]
+    for r in out["ranks"]:
+        assert r["launches"] == [4] * 4 and r["counts"] == counts and r["num_envs"] == 8
+        assert r["replicated"] == [(0, 0.0)] * 4 and r["moved"] > 0
+    assert out["ranks"][0]["gaps"]["params"] <= 1e-5
+    assert out["ranks"][0]["gaps"]["grads"] <= 1e-5
+    assert sorted(os.listdir(tmp_path)) == ["model_4.pt"]
+    entry = chip_smoke.parallel_configuration(out)
+    assert entry["launches_per_training_iteration"] == [[4] * 4, [4] * 4]
 
 
 def test_play_entry_point_and_vec_env_on_cpu(tmp_path):

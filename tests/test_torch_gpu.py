@@ -8,8 +8,9 @@ version divides as the kernel does; check that a rollout launches the kernel
 once per policy step; run chip_smoke.py's training phase at 1024 envs;
 run a K1 training iteration through the registry at 1024 envs (phase 7's
 checks: 24 launches, the kernel bit-equal to its plain version, the cells
-equal to ``gather_contact_cells``); and export a checkpoint of the train CLI
-and hold ``load_npz`` of it bit-equal to the runner's policy on the card.
+equal to ``gather_contact_cells``); export a checkpoint of the train CLI
+and hold ``load_npz`` of it bit-equal to the runner's policy on the card;
+and run chip_smoke.py's data-parallel phase at 1024 envs.
 Without a card they skip; whether a card is present
 is decided inside the fixture.  On the card:
 
@@ -81,6 +82,21 @@ def test_k1_training_iteration_on_the_card(card, tmp_path):
     out = chip_smoke.phase_task("k1_dh_stand", runner, 1)
     assert out["launches"] == [24] * 3 and out["bit_equal_share"] == 1.0
     assert out["cells"]["same_cell"] == out["cells"]["points"] == 16 * 1024
+
+
+def test_data_parallel_iteration_on_the_card(card, tmp_path):
+    """chip_smoke.py phase 8 at 1024 global envs (2x2 terrain): world size 1
+    over NCCL bit-equal to the plain runner; 2 ranks on the card (``cuda:0``
+    twice, over gloo, or two cards over NCCL), 24 launches per rank in each
+    iteration, the train state bit-equal across ranks, the full-batch update
+    within its limits, the lead's checkpoint alone."""
+    out = chip_smoke.phase_parallel(card, num_envs=1024, terrain_rows=2, root=str(tmp_path))
+    assert out["world1"]["backend"] == "nccl" and out["world1"]["launches"] == 24
+    for r in out["ranks"]:
+        assert r["launches"] == [24] * 4 and r["replicated"] == [(0, 0.0)] * 4
+        assert r["num_envs"] == 512 and r["device"].startswith("cuda")
+    assert out["ranks"][0]["gaps"]["params"] <= 1e-5
+    assert os.listdir(tmp_path) == ["model_4.pt"]
 
 
 def test_export_round_trip_on_the_card(card, tmp_path):

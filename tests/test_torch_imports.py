@@ -29,6 +29,7 @@ for m in mods:
 import chip_smoke  # noqa: F401
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
+assert "ti5_isaacgym_tpu_torch.parallel.trainer" in mods, mods
 print(len(mods))
 """
 

@@ -6,8 +6,9 @@ the end and writes ``config.json``, ``metrics.csv`` and a checkpoint; every
 registered ``--task`` trains (``k1_dh_stand`` and ``t1_flat`` one iteration
 each); ``--resume`` continues from the newest checkpoint and repeats a
 straight run bit for bit, and refuses another ``--num_envs``; ``--profile``
-writes a trace; an unknown task and the data-parallel flags raise; the
-config overlay equals the JAX package's on the same arguments.  The resume
+writes a trace; an unknown task raises; the config overlay equals the JAX
+package's on the same arguments.  (The data-parallel flags are tested in
+tests/test_torch_parallel.py.)  The resume
 and profile tests run the registered tasks cut to a 2x2 terrain and 4 steps
 per env (``small_tasks``).
 """
@@ -54,13 +55,6 @@ def test_train_cli_refuses_cuda_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--num_envs", "16", "--max_iterations", "1", "--log_root", str(tmp_path)])
     assert not os.listdir(tmp_path)
-
-
-@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--coordinator", "h:1"],
-                                   ["--num_processes", "2"], ["--process_id", "0"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        helpers.get_args(flags)
 
 
 def test_unported_task_raises(tmp_path):

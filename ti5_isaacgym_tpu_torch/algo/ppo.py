@@ -13,6 +13,12 @@ clip_grad_norm_`` would scale every clipped step by ``max_norm / (norm +
 count, applied as ``-lr * u`` with the carried adaptive-KL learning rate.
 The learning-rate decision stays on the device (``torch.where``): the host
 never waits for a minibatch.
+
+Data parallelism: a learner with a ``group`` (a
+:class:`~..parallel.trainer.ReduceGroup`) averages each minibatch's
+gradients and KL over the group's ranks before the learning-rate rule and
+the clip (the JAX package's two ``pmean`` over ``axis_name``), in one
+all-reduce of one flat buffer per minibatch.
 """
 from __future__ import annotations
 
@@ -107,15 +113,30 @@ def adam_direction(grads, mu, nu, count):
     return u, mu, nu, count
 
 
+def mean_grads_(group, grads, kl_mean):
+    """Average ``grads`` (written back in place) and ``kl_mean`` (returned)
+    over ``group``'s ranks: one all-reduce of the flattened gradients and the
+    KL in one float32 buffer.  In place, so that the clip's norm reads the
+    tensors it reads without a group (a view into the buffer may be aligned
+    otherwise, and the card's fused norm sums aligned tensors in another
+    order)."""
+    flat = group.mean_(torch.cat([x.reshape(-1) for x in grads] + [kl_mean.reshape(1)]),
+                       "update")
+    torch._foreach_copy_(grads, [c.view_as(x) for c, x in
+                                 zip(flat[:-1].split([x.numel() for x in grads]), grads)])
+    return flat[-1]
+
+
 class PPO:
     """Update rule bound to a network module (vanilla or DH).  The module is
     only the function: the parameters live in the :class:`TrainState` and
     are passed in (:func:`.networks.apply`)."""
 
-    def __init__(self, cfg: PPOConfig, network, *, dh: bool = True):
+    def __init__(self, cfg: PPOConfig, network, *, dh: bool = True, group=None):
         self.cfg = cfg
         self.network = network
         self.dh = dh and cfg.estimator_loss
+        self.group = group
 
     # --- acting -------------------------------------------------------
 
@@ -219,20 +240,25 @@ class PPO:
         _, aux, grads = self.loss_and_grads(ts.params, mb, mb_ret, mb_adv)
         surrogate_loss, v_loss, est_loss, mu_new, sigma_new = aux
 
+        names = list(ts.params)
+        g = [grads[k] for k in names]
         # adaptive-KL learning rate (reference dh_ppo.py:139-151), measured
         # with the current params and applied to this step
         lr = ts.lr
-        if cfg.desired_kl is not None and cfg.schedule == "adaptive":
+        adaptive = cfg.desired_kl is not None and cfg.schedule == "adaptive"
+        if adaptive:
             kl_mean = torch.mean(nets.gaussian_kl(mb.mu, mb.sigma, mu_new, sigma_new))
+        else:
+            kl_mean = torch.zeros((), device=lr.device)
+        if self.group is not None:
+            kl_mean = mean_grads_(self.group, g, kl_mean)
+        if adaptive:
             lr = torch.where(kl_mean > cfg.desired_kl * 2.0,
                              torch.clamp_min(lr / 1.5, cfg.min_lr), lr)
             lr = torch.where((kl_mean < cfg.desired_kl / 2.0) & (kl_mean > 0.0),
                              torch.clamp_max(lr * 1.5, cfg.max_lr), lr)
-        else:
-            kl_mean = torch.zeros((), device=lr.device)
 
-        names = list(ts.params)
-        g = clip_by_global_norm([grads[k] for k in names], cfg.max_grad_norm)
+        g = clip_by_global_norm(g, cfg.max_grad_norm)
         u, mu, nu, count = adam_direction(g, [ts.mu[k] for k in names],
                                           [ts.nu[k] for k in names], ts.count)
         torch._foreach_mul_(u, -lr)

@@ -29,11 +29,14 @@ class Transition(NamedTuple):
 
 
 def compute_gae(traj: Transition, last_values: torch.Tensor, gamma: float,
-                lam: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                lam: float, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """GAE by the reverse recursion (reference ``compute_returns``,
     ``rollout_storage.py:97-119``).  Returns (returns, advantages normalised
     by their mean and their two-moment std ``sqrt(max(E[a^2] - E[a]^2, 0))``,
-    as the JAX package computes it)."""
+    as the JAX package computes it).  With a ``group``
+    (:class:`~..parallel.trainer.ReduceGroup`) both moments are averaged
+    over its ranks in one all-reduce (the JAX package's ``pmean``); the
+    ranks hold equal numbers of samples, so these are the global moments."""
     rewards, dones, values = traj.rewards, traj.dones, traj.values
     advantages = torch.empty_like(values)
     next_adv, next_val = torch.zeros_like(last_values), last_values
@@ -46,6 +49,9 @@ def compute_gae(traj: Transition, last_values: torch.Tensor, gamma: float,
     returns = advantages + values
     mean = torch.mean(advantages)
     sq = torch.mean(torch.square(advantages))
+    if group is not None:
+        both = group.mean_(torch.stack([mean, sq]), "gae")
+        mean, sq = both[0], both[1]
     std = torch.sqrt(torch.clamp_min(sq - torch.square(mean), 0.0))
     return returns, (advantages - mean) / (std + 1e-8)
 

@@ -15,6 +15,13 @@ package's ``jax.random.split(key, 3)``: the env's (its ``init_state`` seed,
 a generator on the env's device), the network's (the flax-style init, drawn
 on the CPU) and the run's (action noise and minibatch permutations, on the
 env's device).
+
+Data parallelism (:class:`~..parallel.trainer.ShardedRunner`): the runner's
+``group`` makes the iteration average its metrics over the ranks; only the
+lead rank (rank 0 of the default process group) writes the console rows,
+the CSV, TensorBoard and checkpoints, and its checkpoints hold the learning
+state only (params, Adam, lr, iteration), as the JAX package's multi-process
+save does.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.t1_dh_stand import T1EnvCfg, T1TrainCfg
 from . import networks as nets
@@ -125,6 +133,16 @@ def carry_to_dict(carry: RunnerCarry) -> Dict[str, Any]:
             "cur_ep_len": carry.cur_ep_len}
 
 
+def mean_metrics(group, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics averaged over ``group``'s ranks in one all-reduce, all
+    float32 (the JAX package's ``pmean``: a count such as ``done_count``
+    becomes a per-rank mean)."""
+    flat = group.mean_(torch.cat([v.reshape(-1).to(torch.float32) for v in metrics.values()]),
+                       "metrics")
+    sizes = [v.numel() for v in metrics.values()]
+    return {k: c.view(v.shape) for (k, v), c in zip(metrics.items(), flat.split(sizes))}
+
+
 class _HostMetrics:
     """The metrics of one iteration on their way to the host: one copy into
     pinned memory, enqueued after the iteration and waited for only when the
@@ -180,12 +198,16 @@ class OnPolicyRunner:
         self.num_steps_per_env = train_cfg.runner.num_steps_per_env
         self.seed = train_cfg.seed if seed is None else seed
         self.iteration_count = 0
-        # the lead process logs and checkpoints; one process here (data
-        # parallelism is not ported yet)
-        self.is_lead = True
+        # the lead process logs and checkpoints: rank 0 of the default
+        # process group, or the only process
+        self.is_lead = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+        self.verbose = self.verbose and self.is_lead
+        # the ranks the iteration's metrics are averaged over (None: this
+        # process alone); set by parallel.trainer.ShardedRunner
+        self.group = None
         self._iter_fn = self._make_iteration()
         self._tb = None
-        if log_dir is not None:
+        if log_dir is not None and self.is_lead:
             # TensorBoard scalars for parity with the reference runner;
             # best-effort, the CSV is the canonical log
             try:
@@ -278,7 +300,8 @@ class OnPolicyRunner:
                 mark("rollout")
             # bootstrap values with the iteration's starting params
             last_values = alg.value(carry.ts.params, after.priv_obs)
-            returns, advantages = compute_gae(traj, last_values, cfg.gamma, cfg.lam)
+            returns, advantages = compute_gae(traj, last_values, cfg.gamma, cfg.lam,
+                                               group=self.group)
             if mark is not None:
                 mark("gae")
             ts, metrics = alg.update(carry.ts, traj, returns, advantages, after.rng)
@@ -300,6 +323,8 @@ class OnPolicyRunner:
                     "mean_step_reward": torch.mean(traj.rewards),
                     "mean_noise_std": torch.mean(torch.abs(ts.params["std"])),
                 })
+                if self.group is not None:
+                    metrics = mean_metrics(self.group, metrics)
             if mark is not None:
                 mark("update")
             return after._replace(ts=ts), metrics
@@ -385,9 +410,10 @@ class OnPolicyRunner:
             # a final checkpoint, so that short runs leave a resumable one
             self.save(carry)
         wall = time.time() - t_start
-        print(f"learn done: {num_iterations} iterations, "
-              f"{num_iterations * samples_per_iter / max(wall, 1e-9):,.0f} env-steps/s avg",
-              flush=True)
+        if self.is_lead:
+            print(f"learn done: {num_iterations} iterations, "
+                  f"{num_iterations * samples_per_iter / max(wall, 1e-9):,.0f} env-steps/s avg",
+                  flush=True)
         return carry
 
     # ------------------------------------------------------------------
@@ -449,14 +475,20 @@ class OnPolicyRunner:
     # --- checkpointing (torch.save of plain dicts of tensors) ---------
 
     def save(self, carry: RunnerCarry, path: Optional[str] = None,
-             keep_last: int = 4) -> str:
+             keep_last: int = 4) -> Optional[str]:
         """Params, the Adam state, lr, the iteration, the full env state
         (curriculum levels, command ranges, its generator) and the run's
-        generator: a resume repeats the original run bit for bit."""
+        generator: a resume repeats the original run bit for bit.  Under
+        data parallelism (a ``group``) the lead rank writes the learning state
+        only (the env state is split over the ranks) and the other ranks
+        write nothing and return None."""
+        if not self.is_lead:
+            return None
         path = os.path.abspath(path or os.path.join(self.log_dir,
                                                     f"model_{self.iteration_count}.pt"))
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        payload = carry_to_dict(carry)
+        payload = ({"ts": to_tensor_dict(carry.ts)} if self.group is not None
+                   else carry_to_dict(carry))
         payload["iteration"] = self.iteration_count
         tmp = path + ".tmp"
         torch.save(payload, tmp)
@@ -487,14 +519,20 @@ class OnPolicyRunner:
              params_only: bool = False) -> RunnerCarry:
         """Restore a :meth:`save` checkpoint into ``carry`` (a fresh
         :meth:`init_carry` when None).  ``params_only`` takes the params, lr
-        and iteration and leaves the env alone (any env count); a full restore
-        needs the checkpoint's env count and raises on another."""
+        and iteration and leaves the env alone (any env count).  A checkpoint
+        of the learning state only (written under data parallelism), and any
+        checkpoint loaded under data parallelism, restores the learning
+        state (params, Adam, lr, iteration) onto ``carry``'s env state.  A
+        full restore needs the checkpoint's env count and raises on
+        another."""
         d = torch.load(path, map_location="cpu", weights_only=True)
-        saved_n = int(d["cur_reward_sum"].shape[0])
-        if not params_only and saved_n != self.env.num_envs:
-            raise ValueError(f"checkpoint {path} holds {saved_n} envs but the env has "
-                             f"{self.env.num_envs}: resume with --num_envs {saved_n}, or "
-                             "load the params only")
+        learning_only = not params_only and ("env_state" not in d or self.group is not None)
+        if not (params_only or learning_only):
+            saved_n = int(d["cur_reward_sum"].shape[0])
+            if saved_n != self.env.num_envs:
+                raise ValueError(f"checkpoint {path} holds {saved_n} envs but the env has "
+                                 f"{self.env.num_envs}: resume with --num_envs {saved_n}, or "
+                                 "load the params only")
         if carry is None:
             carry = self.init_carry()
         dev = self.device
@@ -505,6 +543,11 @@ class OnPolicyRunner:
                 params={k: v.to(dev) for k, v in saved_ts["params"].items()},
                 lr=saved_ts["lr"].to(dev)))
         ts = from_tensor_dict(carry.ts, saved_ts, dev)
+        if learning_only:
+            if self.is_lead:
+                print(f"restored the learning state of {path} (iteration "
+                      f"{self.iteration_count}); the env state starts fresh", flush=True)
+            return carry._replace(ts=ts)
         env_state = from_tensor_dict(carry.env_state, d["env_state"], dev)
         rng = from_tensor_dict(carry.rng, d["rng"], dev)
         return carry._replace(ts=ts, env_state=env_state, obs=env_state.obs_hist,

@@ -226,13 +226,20 @@ def origin_at(terrain_origins, level, ttype):
 
 def command_curriculum_update(cfg: T1EnvCfg, done, common_step, episode_sums_tracking,
                               cmd_vx_range, max_episode_length: float,
-                              tracking_scale_dt: float):
+                              tracking_scale_dt: float, group=None):
     """Widen lin_vel_x when the tracking reward exceeds 80% of its maximum,
-    evaluated only when ``common_step % max_episode_length == 0``."""
+    evaluated only when ``common_step % max_episode_length == 0``.  With a
+    ``group`` (:class:`~..parallel.trainer.ReduceGroup`) the done count and
+    the tracking sum are summed over its ranks first, in one all-reduce (the
+    JAX package's ``psum`` over ``axis_name``)."""
     if not cfg.commands.curriculum:
         return cmd_vx_range
     n_done = torch.sum(done)
     track_sum = torch.sum(torch.where(done, episode_sums_tracking, 0.0))
+    if group is not None:
+        # counts up to 2**24 are exact in float32
+        both = group.sum_(torch.stack([n_done.to(torch.float32), track_sum]), "curriculum")
+        n_done, track_sum = both[0], both[1]
     mean_track = track_sum / torch.clamp_min(n_done, 1)
     trigger = ((common_step % int(max_episode_length)) == 0) & (n_done > 0)
     improve = (mean_track / max_episode_length) > (0.8 * tracking_scale_dt)

@@ -76,7 +76,13 @@ class T1DHStandEnv:
         self.model = model if model is not None else load_model(
             os.path.join(RESOURCES, getattr(cfg.asset, "model_spec", "t1_model.json")))
         self.mc = model_consts(self.model)
+        # the width init_state builds; under data parallelism every rank
+        # builds the global state and keeps its slice, so a state's own
+        # width is the rank's (step and reset read the width of the state)
         self.num_envs = cfg.env.num_envs
+        # the ranks the command curriculum reduces over (None: this process
+        # alone); set by parallel.trainer.ShardedRunner
+        self.group = None
         self.num_actions = cfg.env.num_actions
         self.dt = cfg.control.decimation * cfg.sim.dt
         self.max_episode_length_s = cfg.env.episode_length_s
@@ -260,10 +266,11 @@ class T1DHStandEnv:
     def reset(self, state: EnvState):
         """Reset all envs, then one zero-action step gives the first
         observations."""
-        state = self._reset_idx(state, torch.ones((self.num_envs,), dtype=torch.bool,
-                                                  device=self.device), force_all=True)
+        n = state.episode_length.shape[0]
+        state = self._reset_idx(state, torch.ones((n,), dtype=torch.bool, device=self.device),
+                                force_all=True)
         state, obs, priv, _, _, _ = self.step(
-            state, torch.zeros((self.num_envs, self.num_actions), device=self.device))
+            state, torch.zeros((n, self.num_actions), device=self.device))
         return state, obs, priv
 
     # ------------------------------------------------------------------
@@ -896,7 +903,8 @@ class T1DHStandEnv:
             t_idx = self.reward_names.index("tracking_lin_vel")
             state = state.replace(cmd_vx_range=legged.command_curriculum_update(
                 cfg, done, state.common_step, state.episode_sums[:, t_idx], state.cmd_vx_range,
-                float(self.max_episode_length), self.reward_scales_dt["tracking_lin_vel"]))
+                float(self.max_episode_length), self.reward_scales_dt["tracking_lin_vel"],
+                group=self.group))
 
         new_q, new_dq = legged.sample_reset_dofs(cfg, gen, n, self.default_dof_pos)
         new_pos = legged.sample_reset_root(cfg, gen, n, state.env_origin, self.custom_origins)

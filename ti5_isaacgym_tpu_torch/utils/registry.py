@@ -8,7 +8,9 @@ plane terrain, no domain randomization, lag or noise) and ``k1_dh_stand``.
 
 Run directories are ``<log_root>/<%b%d_%H-%M-%S>_<run_name>``: two runs
 started in the same second with the same ``run_name`` share one, so code
-that starts runs back to back passes distinct run names.
+that starts runs back to back passes distinct run names.  Under data
+parallelism the stamp is the lead rank's, shared through the process
+group's store.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..algo.runner import OnPolicyRunner
 from ..configs.k1_dh_stand import k1_env_cfg, k1_train_cfg
 from ..configs.t1_dh_stand import T1EnvCfg, T1TrainCfg
 from ..envs.t1_dh_stand import T1DHStandEnv
+from ..parallel.trainer import lead_value
 from .config import update_cfg_from_args
 
 LEGGED_GYM_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -71,8 +74,9 @@ class TaskRegistry:
         """(runner, train cfg) for ``env``, logging to a new run directory
         under ``log_root``.  The runner lives on the env's device; a
         ``device`` other than it raises.  With ``runner.resume`` set, the
-        checkpoint to resume from is resolved here and left in
-        ``runner.resume_path`` (None when there is none)."""
+        checkpoint to resume from is resolved here (by the lead rank, for
+        all ranks) and left in ``runner.resume_path`` (None when there is
+        none)."""
         _, env_cfg_default, default_train = self._get(name)
         if device is not None and torch.device(device).type != env.device.type:
             raise ValueError(f"runner device {device} differs from the env's {env.device}")
@@ -82,14 +86,19 @@ class TaskRegistry:
         env_cfg = getattr(env, "cfg", env_cfg_default)
         if log_root is None:
             log_root = self.log_root(name, train_cfg)
-        stamp = datetime.now().strftime("%b%d_%H-%M-%S")
+        # under data parallelism every rank takes the lead rank's stamp, so
+        # that all agree on the run directory
+        stamp = lead_value("run_stamp", datetime.now().strftime("%b%d_%H-%M-%S"))
         log_dir = os.path.join(log_root, stamp + "_" + train_cfg.runner.run_name)
         runner = OnPolicyRunner(env, env_cfg, train_cfg, log_dir=log_dir)
         runner.resume_path = None
         if train_cfg.runner.resume:
-            runner.resume_path = resolve_load_path(log_root, train_cfg.runner.load_run,
-                                                   train_cfg.runner.checkpoint)
-            if runner.resume_path:
+            # under data parallelism the lead resolves the checkpoint under
+            # its log root, and every rank takes that path
+            path = (resolve_load_path(log_root, train_cfg.runner.load_run,
+                                      train_cfg.runner.checkpoint) if runner.is_lead else None)
+            runner.resume_path = lead_value("resume_path", path or "") or None
+            if runner.resume_path and runner.is_lead:
                 print(f"resuming from {runner.resume_path}", flush=True)
         return runner, train_cfg
 
