@@ -7,9 +7,9 @@ Drives the port's paths at the task's full width (the 20x20 rough-terrain
 grid, full domain randomization, action/dof/IMU lag, the decimation kernel
 on): the ``t1_dh_stand`` policy rollout at 4096 envs, the DH-PPO training
 iteration at 8192 envs, every registered task through the task
-registry with a CLI resume and the deployment export, and data-parallel
-training over two ranks.  Phases, each
-printing one line with its elapsed seconds:
+registry with a CLI resume and the deployment export, data-parallel
+training over two ranks, and the parts of sim2sim and the viewers that run
+on the card.  Phases, each printing one line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: ``nvcc`` of ``csrc/decimation.cu`` into ``build/ti5_torch_kernels``
@@ -76,6 +76,20 @@ printing one line with its elapsed seconds:
    ``params_only``; last, the time of one update buffer's all-reduce (in
    (a) too) and of one rollout on both ranks with the curriculum's
    all-reduce off.
+9. sim2sim and the viewers (MuJoCo, cv2 and pygame are not on the card's
+   machine; what touches torch runs here), under
+   ``build/ti5_torch_smoke/phase9``: (a) sim2sim's per-step policy
+   (``scripts/sim2sim.make_policy``, the round-5 policy) on 220
+   deployment frames built by ``sim2sim.deployment_frame`` from a
+   numpy-seeded sequence of states, stacked by ``sim2sim.push_frame``, on
+   the card and on the CPU: every ``act_mean`` and ``est_vel`` within 1e-5
+   (TF32 off), and the time per call at batch 1 (mean of 200 after 20 warm,
+   host clock); (b) right after phase 6, the live viewer's overlays
+   (``utils/debug_viz``) for robots 0 and 8191 of phase 6's env state on
+   the card against a CPU copy, within 1e-5; (c) ``scripts/play.main`` with
+   ``--teleop auto`` at 4096 envs for 24 steps with the round-5 policy,
+   stdin not a tty: the headless line printed, 25 kernel launches (24 steps
+   and the reset's zero-action step), a finite ``[24, 19]`` trajectory.
 
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -124,6 +138,9 @@ CHECKPOINT = os.path.join(ROOT, "build", "ti5_torch_smoke", "model_smoke.pt")
 PHASE7_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase7")
 PHASE8_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase8")
 FLAT_ENVS = 1024       # t1_flat's own width
+PHASE9_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase9")
+SIM2SIM_CALLS = 200    # timed policy calls of phase 9 (a), after
+SIM2SIM_WARM = 20      # warm ones
 T0 = time.perf_counter()
 
 
@@ -509,7 +526,8 @@ def phase_train(runner, checkpoint: str = CHECKPOINT):
                gae_ms=gae_ms, update_ms=update_ms, launches=counts, worst=worst,
                bit_equal_share=min(shares), stats=stats,
                reset_share=sum(done) / (n * steps * len(done)), peak_bytes=peak,
-               checkpoint_fields=fields, checkpoint_bytes=os.path.getsize(path))
+               checkpoint_fields=fields, checkpoint_bytes=os.path.getsize(path),
+               state=c1.env_state)
     mem = f"{peak / 2**30:.2f} GiB" if peak is not None else "not measured (CPU)"
     log(f"training: {n} envs x {steps} steps, {iter_ms:.1f} ms per iteration "
         f"({out['env_steps_per_s']:.1f} env-steps/s; mean of 2 after 1 warm of {warm_s:.1f} s), "
@@ -1178,6 +1196,174 @@ def phase_parallel(device="cuda", num_envs: int = TRAIN_ENVS, terrain_rows=None,
             "ms_per_iteration": spr, "env_steps_per_s": env_steps_per_s}
 
 
+# --- phase 9: sim2sim's policy step, the overlays, play's new flags -----------
+
+
+def sim2sim_frames(num: int = SIM2SIM_CALLS + SIM2SIM_WARM, seed: int = SEED) -> list:
+    """``num`` deployment frames of T1 built by ``sim2sim.deployment_frame``
+    from a numpy-seeded sequence of robot states: joints about the default
+    pose, joint and body rates, last actions, a base tilted a little and
+    turned, the gait phase of a 0.4 m/s walk."""
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.scripts import sim2sim
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    cfg = task_registry.get_cfgs("t1_dh_stand")[0]
+    rng = np.random.default_rng(seed)
+    dt = cfg.control.decimation * cfg.sim.dt
+    frames = []
+    for step in range(num):
+        yaw, tilt = rng.uniform(-np.pi, np.pi), rng.normal(scale=0.05, size=2)
+        quat = np.array([np.cos(yaw / 2), tilt[0], tilt[1], np.sin(yaw / 2)])
+        frames.append(sim2sim.deployment_frame(
+            cfg, (step * dt / cfg.rewards.cycle_time) % 1.0, (0.4, 0.0, 0.0),
+            rng.normal(scale=0.1, size=12), rng.normal(scale=1.0, size=12),
+            rng.uniform(-1, 1, size=12).astype(np.float32), rng.normal(scale=0.3, size=3),
+            quat / np.linalg.norm(quat)))
+    return frames
+
+
+def phase_sim2sim_policy(devices=("cuda", "cpu")) -> dict:
+    """Phase 9 (a): sim2sim's per-step policy (``sim2sim.make_policy`` on the
+    round-5 policy) fed through ``sim2sim.push_frame``'s 66-deep history, on
+    each device: the outputs of every call within 1e-5 of the first device's,
+    and the time per call at batch 1 (the mean of SIM2SIM_CALLS calls after
+    SIM2SIM_WARM warm ones, host clock; each call copies its result to the
+    host, which waits for the device)."""
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.algo.convert import load_npz
+    from ti5_isaacgym_tpu_torch.scripts import sim2sim
+
+    hist = np.zeros((66, 47), np.float32)
+    obs = []
+    for frame in sim2sim_frames():
+        hist = sim2sim.push_frame(hist, frame)
+        obs.append(hist.reshape(1, -1))
+    out = {}
+    for dev in devices:
+        policy = sim2sim.make_policy(load_npz(POLICY), dev)
+        results = [policy(o) for o in obs[:SIM2SIM_WARM]]
+        t0 = time.perf_counter()
+        results += [policy(o) for o in obs[SIM2SIM_WARM:]]
+        ms = (time.perf_counter() - t0) / SIM2SIM_CALLS * 1e3
+        act = np.concatenate([r[0] for r in results])
+        est = np.concatenate([r[1] for r in results])
+        if act.shape != (len(obs), 12) or est.shape != (len(obs), 3):
+            raise AssertionError(f"sim2sim policy shapes {act.shape}, {est.shape}")
+        if not (np.isfinite(act).all() and np.isfinite(est).all()):
+            raise AssertionError(f"sim2sim policy on {dev}: outputs not finite")
+        out[dev] = dict(ms=ms, act=act, est=est)
+    ref = out[devices[0]]
+    gaps = {dev: max(float(np.abs(o["act"] - ref["act"]).max()),
+                     float(np.abs(o["est"] - ref["est"]).max())) for dev, o in out.items()}
+    worst = max(gaps.values())
+    if worst > 1e-5:
+        raise AssertionError(f"sim2sim policy: devices disagree by {gaps} (limit 1e-5)")
+    log(f"sim2sim (a): the round-5 policy on {len(obs)} seeded deployment frames, "
+        + ", ".join(f"{dev} {o['ms']:.4f} ms per call" for dev, o in out.items())
+        + f" (batch 1, mean of {SIM2SIM_CALLS} after {SIM2SIM_WARM} warm, host clock); act_mean"
+        f" and est_vel on {devices[-1]} within {worst:.3g} of {devices[0]} (limit 1e-5)")
+    return {"ms": {dev: o["ms"] for dev, o in out.items()}, "max_abs_err": worst}
+
+
+def phase_overlays(env, state, robots=None) -> dict:
+    """Phase 9 (b): the live viewer's overlays (``utils.debug_viz``) for two
+    robots of ``state`` on the env's device against the same functions on a
+    CPU copy of the fields they read: height-scan points and contact-force
+    segments within 1e-5."""
+    import copy
+
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.utils import debug_viz
+
+    robots = robots or (0, env.num_envs - 1)
+    cpu_env = copy.copy(env)
+    cpu_env.height_points = env.height_points.cpu()
+    cpu_state = state.replace(
+        phys=state.phys.replace(base_pos=state.phys.base_pos.cpu(),
+                                base_quat=state.phys.base_quat.cpu()),
+        terrain_height=state.terrain_height.cpu(), contact_forces=state.contact_forces.cpu())
+    worst, segments = 0.0, []
+    for r in robots:
+        got = debug_viz.height_scan_markers(env, state, r)
+        want = debug_viz.height_scan_markers(cpu_env, cpu_state, r)
+        if got.shape != (env.height_points.shape[0], 3) or not np.isfinite(got).all():
+            raise AssertionError(f"height scan of robot {r}: shape {got.shape} or not finite")
+        body_pos = np.tile(got.mean(0), (state.contact_forces.shape[1], 1))
+        segs = debug_viz.contact_force_segments(env, state, body_pos, r)
+        cpu_segs = debug_viz.contact_force_segments(cpu_env, cpu_state, body_pos, r)
+        if len(segs) != len(cpu_segs):
+            raise AssertionError(f"robot {r}: {len(segs)} contact segments on the device, "
+                                 f"{len(cpu_segs)} on the CPU")
+        gaps = [float(np.abs(got - want).max())] + [
+            max(float(np.abs(a[1] - b[1]).max()), abs(a[2] - b[2]))
+            for a, b in zip(segs, cpu_segs)]
+        worst = max(worst, *gaps)
+        segments.append(len(segs))
+    if worst > 1e-5:
+        raise AssertionError(f"overlays: device and CPU differ by {worst} (limit 1e-5)")
+    log(f"overlays (b): {env.num_envs} envs, robots {robots}: "
+        f"{env.height_points.shape[0]} height-scan points each and {segments} contact "
+        f"segments on {env.device} within {worst:.3g} of a CPU copy (limit 1e-5)")
+    return {"robots": list(robots), "segments": segments, "max_abs_err": worst}
+
+
+def phase_play(device="cuda", num_envs: int = NUM_ENVS, steps: int = STEPS,
+               root: str = PHASE9_ROOT) -> dict:
+    """Phase 9 (c): ``scripts/play.main`` with ``--teleop auto`` on a
+    headless host (no joystick, stdin not a tty) and the round-5 policy,
+    robot 0's trajectory exported: the headless line printed, the kernel
+    launched once per step plus once for the reset's zero-action step,
+    a finite ``[steps, 19]`` trajectory."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from ti5_isaacgym_tpu_torch.scripts import play
+
+    os.makedirs(root, exist_ok=True)
+    traj_path = os.path.join(root, "traj.npz")
+    if os.path.exists(traj_path):
+        os.remove(traj_path)
+    dev = torch.device(device)
+    buf, stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO()               # no tty: the keyboard source stays off
+    try:
+        _reset_launch_count()
+        with contextlib.redirect_stdout(buf):
+            state, stats = play.main(["--device", device, "--teleop", "auto", "--num_envs",
+                                      str(num_envs), "--steps", str(steps), "--policy", POLICY,
+                                      "--export_traj", traj_path, "--out_dir", root])
+        _sync(dev)
+        launches = _launch_count(dev)
+    finally:
+        sys.stdin = stdin
+    text = buf.getvalue()
+    if "[play] no teleop source available; using the schedule" not in text:
+        raise AssertionError(f"play --teleop auto did not degrade to the schedule:\n{text}")
+    want = steps + 1 if dev.type == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"play launched the decimation kernel {launches} times, "
+                             f"expected {want} ({steps} steps and the reset's)")
+    with np.load(traj_path) as f:
+        traj = f["qpos"]
+    if traj.shape != (steps, 19) or not np.isfinite(traj).all():
+        raise AssertionError(f"play's trajectory: shape {traj.shape}, finite "
+                             f"{bool(np.isfinite(traj).all())}")
+    if not bool(torch.isfinite(state.phys.base_pos).all()):
+        raise AssertionError("play's final state is not finite")
+    log(f"play (c): --teleop auto at {num_envs} envs, {steps} steps, "
+        f"{stats['env_steps_per_s']:.1f} env-steps/s (with per-step logging), kernel launches "
+        f"{launches} ({steps} steps and the reset's); '[play] no teleop source available' "
+        f"printed; trajectory {traj.shape} finite")
+    return {"launches": launches, "env_steps_per_s": stats["env_steps_per_s"]}
+
+
 def main():
     smi, name = phase_device()
     import torch
@@ -1186,6 +1372,9 @@ def main():
     launches, worst, times, stats, shares = rollout_phases()
     runner = make_runner(TRAIN_ENVS, "cuda")
     train = phase_train(runner)
+    t9 = time.perf_counter()
+    overlays = phase_overlays(runner.env, train.pop("state"))
+    t9 = time.perf_counter() - t9
     del runner
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1193,6 +1382,13 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     par = phase_parallel("cuda")
+    t0 = time.perf_counter()
+    sim2sim = phase_sim2sim_policy()
+    viewers = phase_play("cuda")
+    t9 += time.perf_counter() - t0
+    log(f"phase 9: {t9:.1f} s; sim2sim's policy {sim2sim['ms']['cuda']:.4f} ms per call on "
+        f"the card, overlays within {overlays['max_abs_err']:.3g}, play --teleop auto "
+        f"{viewers['launches']} launches")
     log(f"done: build {build['seconds']:.1f} s, rollout {stats['env_steps_per_s']:.1f} "
         f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s (T1), "
         f"{tasks['k1_dh_stand']['env_steps_per_s']:.1f} (K1), "

@@ -200,9 +200,62 @@ def test_tasks_phase_runs_on_cpu(tmp_path, monkeypatch):
     assert out["golden"] == ["policy_config.yaml", "policy_dh.json", "ti5_dh_policy.onnx"]
 
 
-def test_play_refuses_unported_viewers():
+def test_play_refuses_unported_viewers(monkeypatch, tmp_path):
+    """Play refuses a viewer it cannot run instead of going on without it:
+    ``--video`` where ``cv2`` is missing raises before the env is built,
+    ``--live`` raises the viewer's own error, and an overlay that fails
+    stops the replay with its error."""
+    mujoco = pytest.importorskip("mujoco")
+    import mujoco.viewer
+
     from ti5_isaacgym_tpu_torch.scripts import play
 
-    for flags in (["--video", "x.mp4"], ["--live"], ["--teleop", "auto"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            play.play(play.get_play_args(flags + ["--device", "cpu", "--random_policy"]))
+    def args(*flags):
+        return play.get_play_args(list(flags) + ["--device", "cpu", "--random_policy",
+                                                 "--num_envs", "2", "--steps", "1",
+                                                 "--out_dir", str(tmp_path)])
+
+    built = []
+    monkeypatch.setattr(play, "T1DHStandEnv", lambda *a, **k: built.append(a) or 1 / 0)
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError):
+            play.play(args("--video", str(tmp_path / "x.mp4")))
+
+    def no_display(model, data):
+        raise RuntimeError("no display")
+
+    monkeypatch.setattr(mujoco.viewer, "launch_passive", no_display)
+    with pytest.raises(RuntimeError, match="no display"):
+        play.play(args("--live"))
+    assert built == []
+    monkeypatch.undo()
+
+    class BrokenScene:
+        def is_running(self):
+            return True
+
+        def close(self):
+            self.closed = True
+
+    viewer = BrokenScene()                  # no user_scn: the overlay fails
+    monkeypatch.setattr(mujoco.viewer, "launch_passive", lambda model, data: viewer)
+    with pytest.raises(AttributeError, match="user_scn"):
+        play.play(args("--live"))
+    assert viewer.closed
+
+
+def test_viewer_phase_runs_on_cpu(tmp_path):
+    """Phase 9 on the CPU: (a) sim2sim's policy on two CPU copies (equal),
+    (b) the overlays of a 16-env full-task state against its CPU copy (the
+    same tensors), (c) play with ``--teleop auto`` at 4 envs for 2 steps
+    (the CPU env takes the per-substep loop: no counted launch)."""
+    a = chip_smoke.phase_sim2sim_policy(devices=("cpu", "cpu"))
+    assert a["max_abs_err"] == 0.0 and set(a["ms"]) == {"cpu"} and a["ms"]["cpu"] > 0
+    frames = chip_smoke.sim2sim_frames(4)
+    assert [f.shape for f in frames] == [(47,)] * 4 and frames[0].dtype == np.float32
+    env, _, state, _ = chip_smoke.make_env(16, "cpu", terrain_rows=2, settle_steps=3)
+    b = chip_smoke.phase_overlays(env, state)
+    assert b["robots"] == [0, 15] and b["max_abs_err"] == 0.0 and len(b["segments"]) == 2
+    c = chip_smoke.phase_play("cpu", num_envs=4, steps=2, root=str(tmp_path))
+    assert c["launches"] == 0 and c["env_steps_per_s"] > 0

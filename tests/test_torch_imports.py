@@ -2,10 +2,11 @@
 
 Every module of ``ti5_isaacgym_tpu_torch`` and ``chip_smoke.py`` is imported
 in a fresh interpreter where ``jax``, ``jaxlib``, ``flax``, ``optax``,
-``orbax``, ``yaml`` (the card's machine has no PyYAML) and
-``ti5_isaacgym_tpu`` are blocked in ``sys.modules`` (an import of any of
-them raises).  Also: the port's entry points refuse ``cuda`` where no card
-is present instead of falling back to the CPU.
+``orbax``, ``yaml``, ``mujoco``, ``cv2``, ``pygame`` (the card's machine has
+none of the last four) and ``ti5_isaacgym_tpu`` are blocked in
+``sys.modules`` (an import of any of them raises).  Also: the port's entry
+points refuse ``cuda`` where no card is present instead of falling back to
+the CPU.
 """
 import os
 import subprocess
@@ -18,7 +19,8 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "ti5_isaacgym_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "mujoco", "cv2", "pygame",
+           "ti5_isaacgym_tpu")
 for name in BLOCKED:
     sys.modules[name] = None
 sys.path.insert(0, ROOT)
@@ -29,7 +31,9 @@ for m in mods:
 import chip_smoke  # noqa: F401
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
-assert "ti5_isaacgym_tpu_torch.parallel.trainer" in mods, mods
+for m in ("parallel.trainer", "export.mjcf", "scripts.sim2sim", "utils.debug_viz",
+          "utils.teleop", "utils.render", "utils.gait_design"):
+    assert "ti5_isaacgym_tpu_torch." + m in mods, mods
 print(len(mods))
 """
 
