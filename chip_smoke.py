@@ -8,8 +8,10 @@ grid, full domain randomization, action/dof/IMU lag, the decimation kernel
 on): the ``t1_dh_stand`` policy rollout at 4096 envs, the DH-PPO training
 iteration at 8192 envs, every registered task through the task
 registry with a CLI resume and the deployment export, data-parallel
-training over two ranks, and the parts of sim2sim and the viewers that run
-on the card.  Phases, each printing one line with its elapsed seconds:
+training over two ranks, the parts of sim2sim and the viewers that run
+on the card, and the training lifecycle (the committed walking lineage
+resumed, the gait bootstrap, the contact-statistics oracle's engine half).
+Phases, each printing one line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: ``nvcc`` of ``csrc/decimation.cu`` into ``build/ti5_torch_kernels``
@@ -91,12 +93,36 @@ on the card.  Phases, each printing one line with its elapsed seconds:
    stdin not a tty: the headless line printed, 25 kernel launches (24 steps
    and the reset's zero-action step), a finite ``[24, 19]`` trajectory.
 
+10. the training lifecycle, under ``build/ti5_torch_smoke/phase10``: (a)
+   ``scripts/resume_migrate`` from the committed walking lineage
+   (``checkpoints_torch/t1_dh_stand/Aug21_19-21-52_probe_s21/model_71000.pt``,
+   JAX's iteration 71,000) at its 4096 envs on the full task: right after
+   the graft the train state and the five curriculum fields bit-equal to the
+   file, the iteration count going on from 71,000 and the Adam count from
+   568,000; 1 warm and 2 timed iterations through ``learn``, 24 launches
+   each, finite metrics; the external forces of the escalation schedule at
+   its last stage (0.15 s every 4 s) counted in the warm iteration (the
+   lineage's config has pushes off: none may fire); then one step with
+   pushes on at the start of the next push window (0.3 s), every env
+   pushed, and the kernel against its plain version on the step after it,
+   flags off and on, phase 3's tolerances; the reset share and step reward
+   beside the lineage's last logged rows; (b) ``scripts/train_walk``'s
+   phases at 4096 envs with one iteration each: phase A with the overlay and
+   the shaped scales, the reheat (std exactly 0.4, its Adam moments zero),
+   phase B from the reheated file, 24 launches in each; (c) the oracle's
+   engine half (``scripts/contact_stats``) with the round-5 policy: 800
+   steps at 4 envs and at 4096, every gait statistic and the mean vx within
+   :data:`ORACLE_TOL` of the JAX engine's (``eval_round5/contact_stats.json``),
+   the spread of the 1,024 groups of 4 printed; the matched drop (300
+   steps) within :data:`DROP_TOL` of ``eval_round5/matched_drop.json``.
+
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line.  Imports only the port, torch, numpy and the standard library; needs
 no network; writes only under ``build/`` (and phase 8's rendezvous file in a
 temporary directory).  The kernels' JSON line lists the one kernel, with a
-``configurations`` entry per task it ran on and one for phase 8.
+``configurations`` entry per task it ran on, one for phase 8 and one for
+phase 10.
 """
 from __future__ import annotations
 
@@ -141,6 +167,28 @@ FLAT_ENVS = 1024       # t1_flat's own width
 PHASE9_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase9")
 SIM2SIM_CALLS = 200    # timed policy calls of phase 9 (a), after
 SIM2SIM_WARM = 20      # warm ones
+PHASE10_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase10")
+# the committed walking lineage (JAX's model_71000 carried across) and its width
+LINEAGE = os.path.join(ROOT, "checkpoints_torch", "t1_dh_stand", "Aug21_19-21-52_probe_s21",
+                       "model_71000.pt")
+LINEAGE_ENVS = 4096
+ORACLE_STEPS = 800     # the JAX oracle's horizon (eval_round5/contact_stats.json)
+DROP_STEPS = 300
+# phase 10 (c): each gait statistic of the port's engine against the JAX
+# engine's (eval_round5/contact_stats.json, itself 4 envs): 4 standard
+# deviations (to within 0.5%) of the statistic over the 16 groups of 4 envs
+# of a 64-env, 800-step CPU run of the port
+# (`python tests/torch_oracle_spread.py port 64 800 <out.json>`; PERF.md §6)
+ORACLE_TOL = {"support_ratio": 0.1004, "double_support_frac": 0.0988,
+              "single_support_frac": 0.1272, "flight_frac": 0.0408, "footfalls_per_s": 0.4428,
+              "landing_peak_N": 241.66, "landing_peak_p95_N": 431.61,
+              "landing_impulse_Ns": 6.235, "mean_vx": 0.2164}
+# the matched drop against eval_round5/matched_drop.json's engine column: the
+# port on the CPU matched it within 4e-3 N, 1e-4 N s and to the step (PERF.md
+# §6); the limits allow the card's rounding: first contact to the step, the
+# forces the kernel's contact tolerance (2 N + 0.2%), topple 3 steps
+DROP_TOL = {"first_contact_s": 0.005, "landing_peak_N": 6.3, "landing_impulse_Ns": 1.0,
+            "post_landing_grf_N": 5.0, "topple_s": 0.03}
 T0 = time.perf_counter()
 
 
@@ -1364,6 +1412,393 @@ def phase_play(device="cuda", num_envs: int = NUM_ENVS, steps: int = STEPS,
     return {"launches": launches, "env_steps_per_s": stats["env_steps_per_s"]}
 
 
+# --- phase 10: the training lifecycle -----------------------------------------
+
+
+def _load_json(rel: str):
+    with open(os.path.join(ROOT, rel)) as f:
+        return json.load(f)
+
+
+def _counted_iterations(runner, records: list):
+    """Wrap ``runner._iter_fn`` so that each iteration (as ``learn`` runs it)
+    has its kernel launches counted from 0, its wall time taken between two
+    synchronisations and its metrics checked finite, into ``records``."""
+    import torch
+
+    inner, dev = runner._iter_fn, runner.device
+
+    def iteration(carry, mark=None):
+        _sync(dev)
+        _reset_launch_count()
+        t0 = time.perf_counter()
+        carry, metrics = inner(carry, mark)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in metrics.items():
+            if not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"training metric {k} is not finite: {v}")
+        records.append(dict(launches=_launch_count(dev), ms=ms, metrics={
+            k: float(metrics[k]) for k in ("done_count", "mean_step_reward", "value_loss",
+                                           "surrogate_loss", "estimator_loss", "kl", "lr")}))
+        return carry, metrics
+
+    runner._iter_fn = iteration
+
+
+def _watch_events(env, rows: list):
+    """Wrap ``env.step`` to record, after each step, the common step and the
+    envs with a push velocity set, an external force drawn and one applied
+    (``del env.step`` unwraps it)."""
+    inner = env.step
+
+    def step(state, actions):
+        out = inner(state, actions)
+        s = out[0]
+        rows.append((int(s.common_step), int((s.push_force != 0).any(-1).sum()),
+                     int((s.ext_force != 0).any(-1).sum()),
+                     int((s.ext_force_apply != 0).any(-1).sum())))
+        return out
+
+    env.step = step
+
+
+def event_durations(cfg, common_step: int):
+    """(push duration s, external-force duration s) of the escalation
+    schedules at ``common_step``."""
+    dr = cfg.domain_rand
+    return (dr.push_duration[min(common_step // dr.update_step, len(dr.push_duration) - 1)],
+            dr.add_duration[min(common_step // dr.add_update_step, len(dr.add_duration) - 1)])
+
+
+def lineage_record(iteration: int, rows: int = 100) -> dict:
+    """The mean step reward and episode length of the lineage's last
+    ``rows`` logged iterations up to ``iteration`` (its checkpoint's; the
+    committed tail of its metrics.csv runs on past it)."""
+    import csv
+
+    with open(os.path.join(os.path.dirname(LINEAGE), "metrics.csv")) as f:
+        tail = [r for r in csv.DictReader(f) if int(r["iteration"]) <= iteration][-rows:]
+    return {"iterations": (int(tail[0]["iteration"]), int(tail[-1]["iteration"])),
+            "mean_step_reward": sum(float(r["mean_step_reward"]) for r in tail) / len(tail),
+            "mean_episode_length": sum(float(r["mean_episode_length"]) for r in tail)
+            / len(tail)}
+
+
+def push_step(runner, carry):
+    """One policy step of ``carry`` through a view of the env with pushes on,
+    its common step moved to the start of the next push window: the envs
+    pushed and the schedule's durations there.  Returns (carry after the
+    step, envs pushed, push duration s)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    env, state = runner.env, carry.env_state
+    cfg = env.cfg
+    pushed_env = copy.copy(env)
+    pushed_env.cfg = dataclasses.replace(cfg, domain_rand=dataclasses.replace(
+        cfg.domain_rand, push_robots=True))
+    cs = int(state.common_step)
+    start = cs - cs % env.push_interval + env.push_interval + 1
+    state = state.replace(common_step=torch.full_like(state.common_step, start))
+    with torch.no_grad():
+        actions = runner.alg.act(carry.ts.params, carry.obs, carry.priv_obs, carry.rng)[0]
+    state, obs, priv, _, _, _ = pushed_env.step(state, actions)
+    pushed = int((state.push_force != 0).any(-1).sum())
+    return carry._replace(env_state=state, obs=obs, priv_obs=priv), pushed, \
+        event_durations(cfg, start)[0]
+
+
+def phase_lineage(device, root: str, ckpt: str = None, num_envs: int = LINEAGE_ENVS,
+                  shares=None) -> dict:
+    """Phase 10 (a): ``scripts/resume_migrate`` from the committed lineage
+    at its width, with the checks of the module docstring."""
+    from ti5_isaacgym_tpu_torch.algo.runner import to_tensor_dict
+    from ti5_isaacgym_tpu_torch.scripts import resume_migrate
+    from ti5_isaacgym_tpu_torch.utils import checkpoint as ck
+
+    ckpt = ckpt or LINEAGE
+    t0 = time.perf_counter()
+    args = resume_migrate.get_args(["--ckpt", ckpt, "--num_envs", str(num_envs), "--iters", "3",
+                                    "--log_dir", os.path.join(root, "lineage"),
+                                    "--log_every", "1", "--device", str(device)])
+    runner, carry = resume_migrate.migrate(args)
+    saved = ck.load(ckpt)
+    fields = _bit_equal({"ts": to_tensor_dict(carry.ts),
+                         "env": {k: getattr(carry.env_state, k) for k in ck.KEEP_ENV_FIELDS}},
+                        {"ts": saved["ts"], "env": saved["env_state"]},
+                        "the grafted carry against the committed file")
+    start_it, count0 = runner.iteration_count, int(carry.ts.count)
+    if start_it != saved["iteration"]:
+        raise AssertionError(f"the grafted run starts at iteration {start_it}")
+    cs0 = int(carry.env_state.common_step)
+    records, events = [], []
+    _counted_iterations(runner, records)
+    _watch_events(runner.env, events)
+    carry = runner.learn(1, carry=carry, log_every=1)
+    del runner.env.step
+    carry = runner.learn(2, carry=carry, log_every=1)
+    launches = [r["launches"] for r in records]
+    steps = runner.num_steps_per_env
+    if launches != [steps] * 3:
+        raise AssertionError(f"the lineage's iterations launched the kernel {launches} times, "
+                             f"expected {steps} each")
+    if runner.iteration_count != start_it + 3 or int(carry.ts.count) != count0 + 3 * \
+            runner.ppo_cfg.num_learning_epochs * runner.ppo_cfg.num_mini_batches:
+        raise AssertionError(f"iteration {runner.iteration_count}, Adam count "
+                             f"{int(carry.ts.count)} after 3 iterations from {start_it}, {count0}")
+    if not os.path.exists(os.path.join(root, "lineage", f"model_{start_it + 3}.pt")):
+        raise AssertionError(f"no model_{start_it + 3}.pt in {os.path.join(root, 'lineage')}")
+    push_s, ext_s = event_durations(runner.env.cfg, cs0)
+    ext_steps = [r for r in events if r[3] > 0]
+    if not ext_steps:
+        raise AssertionError(f"no external force applied in the 24 steps from common step {cs0}")
+    if max(r[2] for r in events) != num_envs:
+        raise AssertionError(f"an external force was drawn for {max(r[2] for r in events)} of "
+                             f"{num_envs} envs in its window")
+    pushes_on = runner.env.cfg.domain_rand.push_robots
+    if not pushes_on and any(r[1] for r in events):
+        raise AssertionError("a push fired with push_robots off")
+    carry, pushed, push_s_next = push_step(runner, carry)
+    if pushed != num_envs:
+        raise AssertionError(f"the push step pushed {pushed} of {num_envs} envs")
+    worst = compare_after_iteration(runner, carry, shares)
+    timed = records[1:]
+    iter_ms = sum(r["ms"] for r in timed) / len(timed)
+    n = num_envs
+    reset_share = sum(r["metrics"]["done_count"] for r in records) / (n * steps * len(records))
+    step_reward = sum(r["metrics"]["mean_step_reward"] for r in records) / len(records)
+    record = lineage_record(start_it)
+    out = dict(launches=launches, iter_ms=iter_ms, env_steps_per_s=n * steps / (iter_ms / 1e3),
+               start_iteration=start_it, adam_count=count0, common_step=cs0, fields=fields,
+               ext_steps=len(ext_steps), ext_envs_max=max(r[3] for r in ext_steps),
+               ext_s=ext_s, push_s=push_s, pushes_on=pushes_on, pushed=pushed,
+               push_s_next=push_s_next, worst=worst, reset_share=reset_share,
+               mean_step_reward=step_reward, losses=records[-1]["metrics"], lineage=record,
+               seconds=time.perf_counter() - t0)
+    log(f"lineage (a): {os.path.relpath(ckpt, ROOT)} grafted at {n} envs ({fields} tensors "
+        f"bit-equal to the file), iteration {start_it} -> {runner.iteration_count}, Adam count "
+        f"{count0}; kernel launches per iteration {launches}; {iter_ms:.1f} ms per iteration "
+        f"({out['env_steps_per_s']:.1f} env-steps/s, mean of 2 after 1 warm); common step "
+        f"{cs0}: external force {ext_s} s, drawn for all {n} envs, applied in {len(ext_steps)} "
+        f"steps to up to "
+        f"{out['ext_envs_max']} envs; pushes {'on' if pushes_on else 'off in its config'} "
+        f"({push_s} s by the schedule), a step at the next window start with pushes on pushed "
+        f"{pushed} envs ({push_s_next} s); reset share {reset_share:.4f}, mean step reward "
+        f"{step_reward:.5f} (the lineage's iterations {record['iterations'][0]}-"
+        f"{record['iterations'][1]}: mean step reward {record['mean_step_reward']:.5f}, episode "
+        f"length {record['mean_episode_length']:.1f}); last losses "
+        + ", ".join(f"{k} {v:.4g}" for k, v in records[-1]["metrics"].items()
+                    if k in ("value_loss", "surrogate_loss", "estimator_loss")))
+    return out
+
+
+def phase_bootstrap(device, root: str, num_envs: int = LINEAGE_ENVS) -> dict:
+    """Phase 10 (b): ``scripts/train_walk``'s phases at ``num_envs`` with
+    one iteration each: phase A through ``scripts/train`` with the overlay
+    and the shaped scales, the reheat, phase B through
+    ``scripts/resume_migrate`` from the reheated file."""
+    import torch
+
+    from ti5_isaacgym_tpu_torch.scripts import reheat_std, resume_migrate, train, train_walk
+    from ti5_isaacgym_tpu_torch.utils import checkpoint as ck
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    k = train_walk.knobs(["--device", str(device), "--log_root", os.path.join(root, "walk")],
+                         environ={"NUM_ENVS": str(num_envs), "P1_ITERS": "1", "P2_ITERS": "1",
+                                  "LOG_EVERY": "1"})
+    _reset_launch_count()
+    runner_a = train.main(train_walk.phase_a_argv(k))
+    _sync(dev)
+    launches_a = _launch_count(dev)
+    cfg_a = runner_a.env.cfg
+    scales = dict(cfg_a.rewards.scales)
+    if not cfg_a.env.use_ref_actions or scales["feet_air_time"] != 8.0:
+        raise AssertionError("phase A ran without the overlay or the shaped scales")
+    ckpt = train_walk.newest_in(runner_a.log_dir)
+    del runner_a
+    reheated = reheat_std.main([ckpt, train_walk.reheated_path(ckpt), "--std", str(k.std),
+                                "--device", str(device)])
+    ts = ck.load(reheated)["ts"]
+    std = torch.tensor(k.std, dtype=torch.float32)
+    if not (bool((ts["params"]["std"] == std).all()) and not bool(ts["mu"]["std"].any())
+            and not bool(ts["nu"]["std"].any())):
+        raise AssertionError("the reheated file's std is not 0.4 with zero Adam moments")
+    log_dir = os.path.join(k.log_root, "walkB")
+    runner_b, carry = resume_migrate.migrate(
+        resume_migrate.get_args(train_walk.phase_b_argv(k, reheated, log_dir)))
+    if not (bool((carry.ts.params["std"] == std.to(dev)).all())
+            and not bool(carry.ts.mu["std"].any()) and not bool(carry.ts.nu["std"].any())):
+        raise AssertionError("phase B did not start from the reheated std")
+    if runner_b.env.cfg.env.use_ref_actions:
+        raise AssertionError("phase B runs with the overlay on")
+    _reset_launch_count()
+    runner_b.learn(k.p2_iters, carry=carry, log_every=1)
+    _sync(dev)
+    launches_b = _launch_count(dev)
+    steps = runner_b.num_steps_per_env
+    # phase A's count holds its runner's reset (one zero-action step) too
+    if [launches_a, launches_b] != [steps + 1, steps]:
+        raise AssertionError(f"the bootstrap's phases launched the kernel {launches_a} and "
+                             f"{launches_b} times, expected {steps + 1} (the iteration and "
+                             f"the reset's step) and {steps}")
+    if not os.path.exists(os.path.join(log_dir, "model_2.pt")):
+        raise AssertionError(f"phase B wrote no model_2.pt into {log_dir}")
+    out = dict(launches=[launches_a, launches_b], seconds=time.perf_counter() - t0)
+    log(f"bootstrap (b): train_walk at {num_envs} envs, phase A (use_ref_actions 1, "
+        f"{train_walk.SHAPING}) {launches_a} launches (its iteration and the reset's step), "
+        f"std reheated to "
+        f"{k.std} exactly with its Adam moments zero, phase B from the reheated file (overlay "
+        f"off) {launches_b} launches, model_2.pt written ({out['seconds']:.1f} s)")
+    return out
+
+
+def gait_spread(grf, vx, dt, weight, settle: int, group: int = 4) -> dict:
+    """Each statistic of :func:`contact_stats.gait_stats` and the mean vx
+    over the groups of ``group`` envs: mean, standard deviation, min, max."""
+    import numpy as np
+
+    from ti5_isaacgym_tpu_torch.scripts import contact_stats as cs
+
+    half = vx[len(vx) // 2:]
+    per = [dict(cs.gait_stats(grf[:, i:i + group], dt, weight, settle),
+                mean_vx=float(half[:, i:i + group].mean()))
+           for i in range(0, grf.shape[1], group)]
+    return {k: dict(mean=float(np.mean([p[k] for p in per])),
+                    std=float(np.std([p[k] for p in per], ddof=1)),
+                    min=float(np.min([p[k] for p in per])),
+                    max=float(np.max([p[k] for p in per]))) for k in per[0]}
+
+
+def check_within(got: dict, want: dict, tol: dict, what: str):
+    """Raise unless every ``got[k]`` lies within ``tol[k]`` of ``want[k]``."""
+    bad = {k: (got[k], want[k], tol[k]) for k in tol if not abs(got[k] - want[k]) <= tol[k]}
+    if bad:
+        raise AssertionError(f"{what} outside its tolerance (got, JAX engine, tolerance): {bad}")
+
+
+def phase_oracle(device, steps: int = ORACLE_STEPS, wide_envs: int = LINEAGE_ENVS,
+                 drop_steps: int = DROP_STEPS, check: bool = True) -> dict:
+    """Phase 10 (c): the oracle's engine half with the round-5 policy: the
+    gait statistics at 4 envs and at ``wide_envs`` against the engine column
+    of ``eval_round5/contact_stats.json``, the spread of the wide run's
+    groups of 4, and the matched drop against ``eval_round5/matched_drop.json``
+    (``check`` False: a short CPU rehearsal, nothing held)."""
+    import numpy as np
+    import torch
+
+    from ti5_isaacgym_tpu_torch.envs.t1_dh_stand import T1DHStandEnv
+    from ti5_isaacgym_tpu_torch.scripts import contact_stats as cs
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    env_cfg = task_registry.get_cfgs("t1_dh_stand")[0]
+    network = cs.load_policy_network(env_cfg, npz=POLICY)
+    ref = _load_json("eval_round5/contact_stats.json")
+    want = {k: v["engine"] for k, v in ref["stats"].items()}
+    want["mean_vx"] = ref["mean_vx"]["engine"]
+    cmd = ref["cmd"]
+    _reset_launch_count()
+    g4, vx4, weight, dt = cs.run_engine(env_cfg, None, cmd, steps, device=device,
+                                        network=network)
+    launches4 = _launch_count(dev)
+    s4 = dict(cs.gait_stats(g4, dt, weight, min(cs.SETTLE, steps // 2)), mean_vx=vx4)
+    env = T1DHStandEnv(cs.engine_cfg(env_cfg, wide_envs), seed=11, device=dev)
+    state, obs, _ = env.reset(env.init_state(11))
+    _reset_launch_count()
+    t1 = time.perf_counter()
+    gw, vxw, resets = cs.engine_rollout(env, network.to(dev).eval(), state, obs, cmd, steps)
+    wide_s = time.perf_counter() - t1
+    launches_w = _launch_count(dev)
+    kernel_path = env.use_kernel_path
+    del env, state, obs
+    settle = min(cs.SETTLE, steps // 2)
+    sw = dict(cs.gait_stats(gw, dt, weight, settle), mean_vx=float(np.mean(vxw[len(vxw) // 2:])))
+    spread = gait_spread(gw, vxw, dt, weight, settle) if check else {}
+    for name, grf in (("4-env", g4), ("wide", gw)):
+        if not np.isfinite(grf).all():
+            raise AssertionError(f"the oracle's {name} run has non-finite forces")
+    mine = _load_json("eval_round5/matched_drop.json")["engine"]
+    _reset_launch_count()
+    g, z, ddt = cs.drop_engine(env_cfg, steps=drop_steps, device=device)
+    launches_drop = _launch_count(dev)
+    drop = cs.drop_stats(g, z, ddt)
+    # one launch per step; run_engine and drop_engine reset their env inside
+    # (one more), and the drop's last step (env 0 done) is launched, not kept
+    expected = (steps + 1, steps, len(z) + 1 + (len(z) < drop_steps)) if kernel_path \
+        else (0, 0, 0)
+    if (launches4, launches_w, launches_drop) != expected:
+        raise AssertionError(f"the oracle's runs launched the kernel {launches4}, {launches_w}, "
+                             f"{launches_drop} times, expected {expected}")
+    if check:
+        check_within(s4, want, ORACLE_TOL, f"the gait statistics at 4 envs, {steps} steps")
+        check_within(sw, want, ORACLE_TOL, f"the gait statistics at {wide_envs} envs")
+        check_within(drop, mine, DROP_TOL, "the matched drop")
+    out = dict(stats4=s4, stats_wide=sw, spread=spread, drop=drop, launches4=launches4,
+               resets_wide=int(resets.sum()), envs_reset_wide=int((resets > 0).sum()),
+               # the envs stand on a square grid, row by row: each quarter of
+               # the env indices is a band of distance from the origin along x
+               envs_reset_by_quarter=[int((q > 0).sum()) for q in np.array_split(resets, 4)],
+               launches_wide=launches_w, launches_drop=launches_drop, drop_steps=len(z),
+               wide_s=wide_s, seconds=time.perf_counter() - t0)
+    log(f"oracle (c): the round-5 policy at cmd {cmd}, {steps} steps; kernel launches "
+        f"{launches4} (4 envs), {launches_w} ({wide_envs} envs, {wide_s:.1f} s; "
+        f"{out['envs_reset_wide']} envs fell and restarted, {out['resets_wide']} times in all; "
+        f"by quarter of the env index, nearest the origin first: "
+        f"{out['envs_reset_by_quarter']}), "
+        f"{launches_drop} (drop, {len(z)} steps)")
+    for k in want:
+        sp = spread.get(k)
+        log(f"oracle (c): {k:20s} JAX engine {want[k]:10.4f} | 4 envs {s4[k]:10.4f} | "
+            f"{wide_envs} envs {sw[k]:10.4f} | tolerance {ORACLE_TOL[k]:.4g}"
+            + (f" | groups of 4: mean {sp['mean']:.4f} std {sp['std']:.4f} min {sp['min']:.4f} "
+               f"max {sp['max']:.4f}" if sp else ""))
+    log("oracle (c): matched drop " + ", ".join(
+        f"{k} {drop[k]:.4f} (JAX {mine[k]:.4f}, tolerance {DROP_TOL[k]:.4g})" for k in drop))
+    return out
+
+
+def phase_lifecycle(device="cuda", root: str = PHASE10_ROOT) -> dict:
+    """Phase 10: (a) the lineage, (b) the bootstrap, (c) the oracle's
+    engine half."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    shares = []
+    out = {"lineage": phase_lineage(device, root, shares=shares)}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["bootstrap"] = phase_bootstrap(device, root)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["oracle"] = phase_oracle(device)
+    out["bit_equal_share"] = min(shares)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {out['seconds']:.1f} s")
+    return out
+
+
+def lifecycle_configuration(life: dict) -> dict:
+    """Phase 10's ``configurations`` entry of the kernels' JSON line."""
+    o = life["oracle"]
+    return dict(phase=10, task="t1_dh_stand", num_envs=[LINEAGE_ENVS, 4, LINEAGE_ENVS],
+                bit_equal_share=life["bit_equal_share"],
+                max_abs_err=life["lineage"]["worst"],
+                launches_per_training_iteration={
+                    "lineage": life["lineage"]["launches"],
+                    "bootstrap_phase_b": life["bootstrap"]["launches"][1:]},
+                launches_bootstrap_phase_a_with_reset=life["bootstrap"]["launches"][0],
+                launches_oracle={"4_envs": o["launches4"], f"{LINEAGE_ENVS}_envs": o["launches_wide"],
+                                 "drop": o["launches_drop"]})
+
+
 def main():
     smi, name = phase_device()
     import torch
@@ -1389,11 +1824,15 @@ def main():
     log(f"phase 9: {t9:.1f} s; sim2sim's policy {sim2sim['ms']['cuda']:.4f} ms per call on "
         f"the card, overlays within {overlays['max_abs_err']:.3g}, play --teleop auto "
         f"{viewers['launches']} launches")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    life = phase_lifecycle("cuda")
     log(f"done: build {build['seconds']:.1f} s, rollout {stats['env_steps_per_s']:.1f} "
         f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s (T1), "
         f"{tasks['k1_dh_stand']['env_steps_per_s']:.1f} (K1), "
         f"{tasks['t1_flat']['env_steps_per_s']:.1f} (t1_flat), "
-        f"{par['env_steps_per_s']:.1f} (T1 over 2 ranks) on {smi}")
+        f"{par['env_steps_per_s']:.1f} (T1 over 2 ranks), the lineage at {LINEAGE_ENVS} envs "
+        f"{life['lineage']['env_steps_per_s']:.1f} on {smi}")
     configs = [dict(task="t1_dh_stand", num_envs=[NUM_ENVS, TRAIN_ENVS],
                     bit_equal_share=min(shares + [train["bit_equal_share"]]),
                     max_abs_err=max(worst, train["worst"]),
@@ -1406,6 +1845,8 @@ def main():
                             **{k: v for k, v in t.get("times", {}).items() if k != "host_us"}))
     worst = max(c["max_abs_err"] for c in configs)
     configs.append(parallel_configuration(par))
+    configs.append(lifecycle_configuration(life))
+    worst = max(worst, life["lineage"]["worst"])
     for line in result_lines(smi, name, torch.cuda.device_count(), launches, worst, times,
                              train["launches"], configs):
         print(line, flush=True)

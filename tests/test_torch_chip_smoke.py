@@ -259,3 +259,94 @@ def test_viewer_phase_runs_on_cpu(tmp_path):
     assert b["robots"] == [0, 15] and b["max_abs_err"] == 0.0 and len(b["segments"]) == 2
     c = chip_smoke.phase_play("cpu", num_envs=4, steps=2, root=str(tmp_path))
     assert c["launches"] == 0 and c["env_steps_per_s"] > 0
+
+
+def _cut_t1(monkeypatch):
+    """Register ``t1_dh_stand`` cut to a 2x2 terrain, 4 steps per env and
+    the kernel path's plain version (its calls are counted on the CPU), with
+    every command counted as standing (the external force is applied to
+    standing envs only, and 8 envs may have none)."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    cls, env_cfg, train_cfg = task_registry._get("t1_dh_stand")
+    env_cfg = dataclasses.replace(
+        env_cfg,
+        terrain=dataclasses.replace(env_cfg.terrain, num_rows=2, num_cols=2, border_size=2.0),
+        sim=dataclasses.replace(env_cfg.sim, megakernel_interpret=True),
+        commands=dataclasses.replace(env_cfg.commands, stand_com_threshold=1e9))
+    train_cfg = dataclasses.replace(train_cfg, runner=dataclasses.replace(
+        train_cfg.runner, num_steps_per_env=4))
+    monkeypatch.setitem(task_registry._tasks, "t1_dh_stand", (cls, env_cfg, train_cfg))
+    return cls, env_cfg, train_cfg
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of small ops (the workers of a
+    parallel test run share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_lifecycle_phase_runs_on_cpu(tmp_path, monkeypatch, one_thread):
+    """Phase 10 at 8 envs on the cut task through the kernel path's plain
+    version: (a) the lineage's learning state, common step and command
+    range with 8 envs' curriculum fields (levels folded onto the 2x2 grid,
+    origins of a fresh carry) grafted bit-equal, 3 iterations of 4 counted
+    plain runs, an external force applied, no push (pushes are off in the
+    config), then every env pushed at the next window; (b) the bootstrap's
+    phases, 4 plain runs each (and phase A's reset), the std reheated; (c)
+    the oracle's engine half for a few steps, unchecked, its plain runs
+    counted, and the configuration entry."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.algo.runner import OnPolicyRunner
+    from ti5_isaacgym_tpu_torch.utils import checkpoint as ck
+
+    cls, env_cfg, train_cfg = _cut_t1(monkeypatch)
+    n = 8
+    cfg = dataclasses.replace(env_cfg, env=dataclasses.replace(env_cfg.env, num_envs=n))
+    fresh = OnPolicyRunner(cls(cfg, seed=0, device="cpu"), cfg, train_cfg,
+                           verbose=False).init_carry()
+    payload = ck.load(chip_smoke.LINEAGE)
+    env = payload["env_state"]
+    payload["env_state"] = dict(env, terrain_level=env["terrain_level"][:n] % 2,
+                                terrain_type=env["terrain_type"][:n] % 2,
+                                env_origin=fresh.env_state.env_origin)
+    ckpt = str(tmp_path / "model_71000.pt")
+    ck.save(payload, ckpt)
+    shares = []
+    a = chip_smoke.phase_lineage("cpu", str(tmp_path / "a"), ckpt=ckpt, num_envs=n,
+                                 shares=shares)
+    assert a["launches"] == [4] * 3 and a["start_iteration"] == 71000
+    assert a["adam_count"] == 568000 and a["common_step"] == 1704001
+    assert a["ext_s"] == 0.15 and a["push_s"] == 0.3 and not a["pushes_on"]
+    assert a["ext_steps"] > 0 and a["pushed"] == n and a["push_s_next"] == 0.3
+    assert a["worst"] == 0.0 and shares == [1.0, 1.0]
+    assert a["lineage"]["iterations"] == (70901, 71000)
+    b = chip_smoke.phase_bootstrap("cpu", str(tmp_path / "b"), num_envs=n)
+    assert b["launches"] == [5, 4]          # phase A: its iteration and the reset's step
+    c = chip_smoke.phase_oracle("cpu", steps=6, wide_envs=8, drop_steps=6, check=False)
+    assert (c["launches4"], c["launches_wide"], c["launches_drop"]) == (7, 6, 7)  # and resets
+    assert sum(c["envs_reset_by_quarter"]) == c["envs_reset_wide"] <= 8
+    assert set(c["stats4"]) == set(chip_smoke.ORACLE_TOL) and c["drop_steps"] == 6
+    entry = chip_smoke.lifecycle_configuration(
+        {"lineage": a, "bootstrap": b, "oracle": c, "bit_equal_share": min(shares)})
+    assert entry["launches_per_training_iteration"] == {"lineage": [4] * 3,
+                                                        "bootstrap_phase_b": [4]}
+    assert entry["launches_bootstrap_phase_a_with_reset"] == 5
+
+
+def test_oracle_tolerances_are_the_stated_ones():
+    """The limits phase 10 holds the oracle to cover every statistic of the
+    JAX tool's JSON and of its matched drop."""
+    stats = json.load(open(os.path.join(chip_smoke.ROOT, "eval_round5", "contact_stats.json")))
+    drop = json.load(open(os.path.join(chip_smoke.ROOT, "eval_round5", "matched_drop.json")))
+    assert set(chip_smoke.ORACLE_TOL) == set(stats["stats"]) | {"mean_vx"}
+    assert set(chip_smoke.DROP_TOL) == set(drop["engine"])
+    assert all(v > 0 for v in list(chip_smoke.ORACLE_TOL.values())
+               + list(chip_smoke.DROP_TOL.values()))

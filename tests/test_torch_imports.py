@@ -32,7 +32,10 @@ import chip_smoke  # noqa: F401
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 for m in ("parallel.trainer", "export.mjcf", "scripts.sim2sim", "utils.debug_viz",
-          "utils.teleop", "utils.render", "utils.gait_design"):
+          "utils.teleop", "utils.render", "utils.gait_design", "utils.checkpoint",
+          "scripts.slim_checkpoint", "scripts.reheat_std", "scripts.resume_migrate",
+          "scripts.sync_checkpoint", "scripts.resume_round", "scripts.train_walk",
+          "scripts.seed_probe", "scripts.contact_stats", "scripts.eval_report"):
     assert "ti5_isaacgym_tpu_torch." + m in mods, mods
 print(len(mods))
 """
@@ -45,7 +48,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
                          stdin=subprocess.DEVNULL)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    assert int(res.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_entry_points_refuse_cuda_without_a_card():

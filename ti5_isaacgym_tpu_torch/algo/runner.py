@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs.t1_dh_stand import T1EnvCfg, T1TrainCfg
+from ..utils.checkpoint import refuse_slim
 from . import networks as nets
 from .ppo import PPO, PPOConfig, TrainState, init_train_state
 from .rollout import Transition, compute_gae
@@ -524,8 +525,11 @@ class OnPolicyRunner:
         checkpoint loaded under data parallelism, restores the learning
         state (params, Adam, lr, iteration) onto ``carry``'s env state.  A
         full restore needs the checkpoint's env count and raises on
-        another."""
+        another.  A slim checkpoint (``utils.checkpoint.slim``) raises unless
+        ``params_only``: ``scripts/resume_migrate.py`` grafts it."""
         d = torch.load(path, map_location="cpu", weights_only=True)
+        if not params_only:
+            refuse_slim(d, path)
         learning_only = not params_only and ("env_state" not in d or self.group is not None)
         if not (params_only or learning_only):
             saved_n = int(d["cur_reward_sum"].shape[0])
