@@ -9,8 +9,10 @@ on): the ``t1_dh_stand`` policy rollout at 4096 envs, the DH-PPO training
 iteration at 8192 envs, every registered task through the task
 registry with a CLI resume and the deployment export, data-parallel
 training over two ranks, the parts of sim2sim and the viewers that run
-on the card, and the training lifecycle (the committed walking lineage
-resumed, the gait bootstrap, the contact-statistics oracle's engine half).
+on the card, the training lifecycle (the committed walking lineage
+resumed, the gait bootstrap, the contact-statistics oracle's engine half),
+and robots read from URDFs by the asset pipeline with the lineage trained
+for 240 iterations.
 Phases, each printing one line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
@@ -115,14 +117,34 @@ Phases, each printing one line with its elapsed seconds:
    :data:`ORACLE_TOL` of the JAX engine's (``eval_round5/contact_stats.json``),
    the spread of the 1,024 groups of 4 printed; the matched drop (300
    steps) within :data:`DROP_TOL` of ``eval_round5/matched_drop.json``.
+11. the asset pipeline and the long training run, under
+   ``build/ti5_torch_smoke/phase11``: (a) K1's URDF from
+   ``scripts/make_k1_urdf``, its spec from ``scripts/extract_model``
+   byte-equal to the committed ``k1_model.json``, ``k1_dh_stand`` built from
+   that file through the registry at 8192 envs, one training iteration with
+   24 launches and finite metrics, then the kernel against its plain version
+   on the next step's inputs, flags off and on, phase 3's tolerances; T1's
+   committed spec through ``scripts/spec_to_urdf`` and back (within 1e-8),
+   T1 at 4096 envs with it and with the committed spec on one decimation's
+   inputs: the kernel's outputs of the two within phase 3's tolerances,
+   flags off and on; (b) ``scripts/resume_migrate`` from the committed
+   lineage at its 4096 envs for :data:`LONG_ITERS` iterations through
+   ``learn``: 24 launches in every iteration, finite params and metrics,
+   the iteration count 71,000 -> 71,240, the Adam count + 240 x 8,
+   ``metrics.csv`` with the JAX columns; over the iterations
+   :data:`LONG_HOLD` after the graft the means of the step reward, the
+   terrain level, the CSV's episode length and air-time term, and the
+   length and air-time term of the episodes that ended there, each within
+   :data:`LONG_RUN_BOUNDS` and printed beside the JAX rows' mean, with the
+   iteration ms, env-steps/s and the phase's seconds.
 
 It then prints the kernels' JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line.  Imports only the port, torch, numpy and the standard library; needs
 no network; writes only under ``build/`` (and phase 8's rendezvous file in a
 temporary directory).  The kernels' JSON line lists the one kernel, with a
-``configurations`` entry per task it ran on, one for phase 8 and one for
-phase 10.
+``configurations`` entry per task it ran on, one for phase 8, one for
+phase 10 and three for phase 11.
 """
 from __future__ import annotations
 
@@ -189,6 +211,25 @@ ORACLE_TOL = {"support_ratio": 0.1004, "double_support_frac": 0.0988,
 # forces the kernel's contact tolerance (2 N + 0.2%), topple 3 steps
 DROP_TOL = {"first_contact_s": 0.005, "landing_peak_N": 6.3, "landing_impulse_Ns": 1.0,
             "post_landing_grf_N": 5.0, "topple_s": 0.03}
+PHASE11_ROOT = os.path.join(ROOT, "build", "ti5_torch_smoke", "phase11")
+LONG_ITERS = 240       # phase 11 (b): the lineage's iterations after the graft
+LONG_HOLD = (141, 240)  # the iterations after the graft whose means are held
+# phase 11 (b): the bounds of those means, from the lineage's 500 committed
+# metric rows (JAX, iterations 70,728-71,227) and a model of the episodes the
+# graft synchronises (`python tests/torch_long_run_bounds.py`, which says
+# how; PERF.md §6): the rows' mean +- 4 standard deviations of a row for the
+# step reward, the terrain level and the length and air-time term of the
+# episodes that ended in the held iterations; the model's range widened by
+# 4 standard deviations for the CSV's windowed episode length and per-
+# iteration air-time term
+LONG_RUN_BOUNDS = {
+    "mean_step_reward": (0.09047326904751218, 0.09769120952271068),
+    "terrain_level": (5.053542121721319, 5.252990104841181),
+    "ended_episode_length": (2322.954473722326, 2437.4077510169627),
+    "ended_feet_air_time": (0.0064149082973546335, 0.007142519000364834),
+    "mean_episode_length": (1374.5383134803978, 2452.700292035972),
+    "rew_feet_air_time": (-0.0002958053388975556, 0.005774016109772702),
+}
 T0 = time.perf_counter()
 
 
@@ -257,6 +298,29 @@ def decimation_inputs(env, state, obs, policy):
     return inputs
 
 
+def within_tolerances(got, want, what: str):
+    """Hold each decimation output of ``got`` to ``want`` within
+    :data:`TOLERANCES`; raises if one is not finite or out of its tolerance,
+    else returns (largest gap, share of values bit-equal, per-output gaps)."""
+    import torch
+
+    worst, gaps, same, total = 0.0, [], 0, 0
+    for name, g, w in zip(OUTPUTS, got, want):
+        same += int((g == w).sum())
+        total += g.numel()
+        atol, rtol = TOLERANCES[name]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"kernel output {name} is not finite ({what})")
+        err = (g - w).abs()
+        gap = float(err.max())
+        worst = max(worst, gap)
+        gaps.append(f"{name} {gap:.3g}")
+        if float((err - (atol + rtol * w.abs())).max()) > 0:
+            raise AssertionError(f"kernel output {name} differs by {gap:.3g} (atol {atol}, "
+                                 f"rtol {rtol}; {what})")
+    return worst, same / total, gaps
+
+
 def compare(env, inputs, flags: bool, label: str, shares=None) -> float:
     """``run_decimation`` on the env's device against ``run_decimation_plain``
     on the same inputs; raises if an output is not finite or out of its
@@ -271,28 +335,15 @@ def compare(env, inputs, flags: bool, label: str, shares=None) -> float:
     if env.device.type == "cuda":
         torch.cuda.synchronize(env.device)
     want = run_decimation_plain(**args, **inputs)
-    worst, gaps, same, total = 0.0, [], 0, 0
-    for name, g, w in zip(OUTPUTS, got, want):
-        same += int((g == w).sum())
-        total += g.numel()
-        atol, rtol = TOLERANCES[name]
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"kernel output {name} is not finite ({label}, flags {flags})")
-        err = (g - w).abs()
-        over = err - (atol + rtol * w.abs())
-        gap = float(err.max())
-        worst = max(worst, gap)
-        gaps.append(f"{name} {gap:.3g}")
-        if float(over.max()) > 0:
-            raise AssertionError(f"kernel output {name} differs from the plain version by "
-                                 f"{gap:.3g} (atol {atol}, rtol {rtol}; {label}, flags {flags})")
+    worst, share, gaps = within_tolerances(got, want, f"the kernel against the plain version; "
+                                                      f"{label}, flags {flags}")
     if shares is not None:
-        shares.append(same / total)
+        shares.append(share)
     feet = list(env.model.feet_bodies)
     fz = want[2].reshape(env.model.nb, 3, -1)[feet, 2]
     in_contact = float((fz > 5.0).any(dim=0).float().mean())
     log(f"compare {label}, coulomb/noise={'on' if flags else 'off'} ({in_contact:.0%} of envs "
-        f"with a foot in contact; {same / total:.4%} of output values bit-equal): "
+        f"with a foot in contact; {share:.4%} of output values bit-equal): "
         f"max |kernel - plain|: " + ", ".join(gaps))
     return worst
 
@@ -1439,8 +1490,8 @@ def _counted_iterations(runner, records: list):
             if not bool(torch.isfinite(v.float()).all()):
                 raise AssertionError(f"training metric {k} is not finite: {v}")
         records.append(dict(launches=_launch_count(dev), ms=ms, metrics={
-            k: float(metrics[k]) for k in ("done_count", "mean_step_reward", "value_loss",
-                                           "surrogate_loss", "estimator_loss", "kl", "lr")}))
+            k: float(v) for k, v in metrics.items() if v.numel() == 1},
+            episode_sums_done=metrics["episode_sums_done"].tolist()))
         return carry, metrics
 
     runner._iter_fn = iteration
@@ -1799,6 +1850,255 @@ def lifecycle_configuration(life: dict) -> dict:
                                  "drop": o["launches_drop"]})
 
 
+# --- phase 11: the asset pipeline, the long training run -----------------------
+
+
+def spec_gap(a, b, path: str = "spec") -> float:
+    """The largest gap between the numbers of two model specs; raises where
+    their structure or another leaf differs (the base's ``merged_links``
+    aside: a spec's URDF has no fixed joints left to collapse)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(set(a) ^ set(b))} differ")
+        return max((spec_gap(a[k], b[k], f"{path}.{k}") for k in a if k != "merged_links"),
+                   default=0.0)
+    if isinstance(a, list):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} against {len(b)} entries")
+        return max((spec_gap(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))),
+                   default=0.0)
+    if isinstance(a, (int, float)) and not isinstance(a, bool):
+        return abs(float(a) - float(b))
+    if a != b:
+        raise AssertionError(f"{path}: {a!r} against {b!r}")
+    return 0.0
+
+
+def compare_specs(env_a, env_b, inputs, flags: bool) -> tuple:
+    """The kernel with ``env_b``'s model against the kernel with ``env_a``'s
+    on the same decimation inputs, within :data:`TOLERANCES`: (largest gap,
+    bit-equal share)."""
+    from ti5_isaacgym_tpu_torch.physics.megakernel import run_decimation
+
+    want, got = (run_decimation(**dict(e.decimation_args(), use_coulomb=flags,
+                                       use_noise=flags), **inputs) for e in (env_a, env_b))
+    return within_tolerances(got, want, f"the round-tripped spec, flags {flags}")[:2]
+
+
+def phase_assets(device, root: str, k1_envs: int = TRAIN_ENVS, t1_envs: int = NUM_ENVS,
+                 terrain_rows=None, settle_steps: int = SETTLE_STEPS, shares=None) -> dict:
+    """Phase 11 (a): K1's URDF from ``scripts/make_k1_urdf`` and its spec
+    from ``scripts/extract_model`` (byte-equal to the committed spec), K1
+    built from that file through the registry at ``k1_envs``, one training
+    iteration with its launches counted, then the kernel against its plain
+    version on the next step's inputs; T1's spec through
+    ``scripts/spec_to_urdf`` and back, T1 at ``t1_envs`` with it and with
+    the committed spec on one decimation's inputs, the kernel's outputs of
+    the two within phase 3's tolerances, flags off and on."""
+    import dataclasses
+
+    import torch
+
+    from ti5_isaacgym_tpu_torch.physics.model import RESOURCES
+    from ti5_isaacgym_tpu_torch.scripts import extract_model, make_k1_urdf, spec_to_urdf
+    from ti5_isaacgym_tpu_torch.utils.registry import task_registry
+
+    t0 = time.perf_counter()
+    k1_spec = os.path.join(root, "k1", "k1_model.json")
+    extract_model.main([make_k1_urdf.main(["-o", os.path.join(root, "k1", "k1.urdf")]),
+                        "-o", k1_spec])
+    with open(k1_spec) as f, open(os.path.join(RESOURCES, "k1_model.json")) as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{k1_spec} differs from the committed k1_model.json")
+    cfg, _ = task_registry.get_cfgs("k1_dh_stand")
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, num_envs=k1_envs),
+                              asset=dataclasses.replace(cfg.asset, model_spec=k1_spec))
+    env, _ = task_registry.make_env("k1_dh_stand", env_cfg=cfg, device=device)
+    runner, _ = task_registry.make_alg_runner(env, "k1_dh_stand", log_root=root, device=device)
+    dev, steps = runner.device, runner.num_steps_per_env
+    carry = runner.init_carry()
+    _sync(dev)
+    _reset_launch_count()
+    carry, metrics = runner._make_iteration()(carry)
+    _sync(dev)
+    k1_launches = _launch_count(dev)
+    if k1_launches != steps:
+        raise AssertionError(f"K1 from the extracted spec launched the kernel {k1_launches} "
+                             f"times in an iteration, expected {steps}")
+    bad = [k for k, v in list(metrics.items()) + list(carry.ts.params.items())
+           if not bool(torch.isfinite(v.float()).all())]
+    if bad:
+        raise AssertionError(f"K1 from the extracted spec: {bad} not finite")
+    k1_worst = compare_after_iteration(runner, carry, shares)
+    del runner, env, carry
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    with open(os.path.join(RESOURCES, "t1_model.json")) as f:
+        committed = json.load(f)
+    t1_urdf = os.path.join(root, "t1", "t1.urdf")
+    os.makedirs(os.path.dirname(t1_urdf), exist_ok=True)
+    with open(t1_urdf, "w") as f:
+        f.write(spec_to_urdf.spec_to_urdf(committed))
+    t1_spec = os.path.join(root, "t1", "t1_model.json")
+    gap = spec_gap(committed, extract_model.main([t1_urdf, "-o", t1_spec]))
+    if gap > 1e-8:      # tests/test_asset_roundtrip.py's tolerance
+        raise AssertionError(f"the round-tripped T1 spec is {gap:.3g} from the committed one")
+    env_a, policy, state, obs = make_env(t1_envs, device, terrain_rows, settle_steps)
+    env_b = type(env_a)(dataclasses.replace(env_a.cfg, asset=dataclasses.replace(
+        env_a.cfg.asset, model_spec=t1_spec)), terrain=env_a.terrain, seed=SEED, device=device)
+    inputs = decimation_inputs(env_a, state, obs, policy)
+    t1 = [compare_specs(env_a, env_b, inputs, flags) for flags in (False, True)]
+    out = dict(k1_envs=k1_envs, k1_launches=k1_launches, k1_worst=k1_worst, t1_envs=t1_envs,
+               spec_gap=gap, t1_worst=max(w for w, _ in t1), t1_share=min(s for _, s in t1),
+               seconds=time.perf_counter() - t0)
+    log(f"assets (a): make_k1_urdf -> extract_model byte-equal to the committed k1_model.json; "
+        f"K1 from it at {k1_envs} envs: {k1_launches} launches in one iteration, kernel vs "
+        f"plain max gap {k1_worst:.3g}; T1 through spec_to_urdf and extract_model within "
+        f"{gap:.3g} of the committed spec, the kernel with it at {t1_envs} envs within "
+        f"{out['t1_worst']:.3g} of the committed spec's ({out['t1_share']:.4%} of output "
+        f"values bit-equal; flags off and on) ({out['seconds']:.1f} s)")
+    return out
+
+
+def _count_falls(env) -> list:
+    """Wrap ``env.step`` to count, on the device, the episodes that end by a
+    fall (done, not timed out) into the returned list's one tensor
+    (``del env.step`` unwraps it)."""
+    import torch
+
+    inner, count = env.step, [torch.zeros((), dtype=torch.int64, device=env.device)]
+
+    def step(state, actions):
+        out = inner(state, actions)
+        count[0] += (out[4] & ~out[5]["time_outs"]).sum()
+        return out
+
+    env.step = step
+    return count
+
+
+def phase_long_run(device, root: str, ckpt: str = None, num_envs: int = LINEAGE_ENVS,
+                   iters: int = LONG_ITERS, hold=LONG_HOLD, bounds=LONG_RUN_BOUNDS) -> dict:
+    """Phase 11 (b): ``scripts/resume_migrate`` from the committed lineage
+    at ``num_envs`` for ``iters`` iterations through ``learn``, every one
+    launching the kernel once per step, finite params and metrics, the
+    iteration and Adam counts moving on, ``metrics.csv`` with the JAX
+    columns; the means over the iterations ``hold`` (after the graft) of
+    the step reward, the terrain level, the CSV's episode length and
+    air-time term, and the length and air-time term of the episodes that
+    ended there, each within ``bounds`` (None: reported only)."""
+    import csv
+
+    import torch
+
+    from ti5_isaacgym_tpu_torch.scripts import resume_migrate
+
+    ckpt = ckpt or LINEAGE
+    t0 = time.perf_counter()
+    log_dir = os.path.join(root, "lineage")
+    args = resume_migrate.get_args(["--ckpt", ckpt, "--num_envs", str(num_envs), "--iters",
+                                    str(iters), "--log_dir", log_dir, "--log_every", "20",
+                                    "--device", str(device)])
+    runner, carry = resume_migrate.migrate(args)
+    start_it, count0 = runner.iteration_count, int(carry.ts.count)
+    records = []
+    _counted_iterations(runner, records)
+    falls = _count_falls(runner.env)
+    carry = runner.learn(iters, carry=carry, log_every=20)
+    del runner.env.step
+    steps, cfg = runner.num_steps_per_env, runner.ppo_cfg
+    launches = [r["launches"] for r in records]
+    if launches != [steps] * iters:
+        raise AssertionError(f"the long run launched the kernel {sorted(set(launches))} times "
+                             f"per iteration, expected {steps} in each of {iters}")
+    adam = int(carry.ts.count) - count0
+    if runner.iteration_count != start_it + iters or \
+            adam != iters * cfg.num_learning_epochs * cfg.num_mini_batches:
+        raise AssertionError(f"iteration {runner.iteration_count}, Adam count +{adam} after "
+                             f"{iters} iterations from {start_it}")
+    bad = [k for k, v in carry.ts.params.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"parameters {bad} are not finite after the long run")
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    with open(os.path.join(os.path.dirname(LINEAGE), "metrics.csv")) as f:
+        jax_rows = list(csv.DictReader(f))
+    missing = set(jax_rows[0]) - set(rows[0])
+    if missing or [int(r["iteration"]) for r in rows] != list(range(start_it + 1,
+                                                                    start_it + iters + 1)):
+        raise AssertionError(f"metrics.csv lacks the JAX columns {sorted(missing)} or rows")
+    held, ended = rows[hold[0] - 1:hold[1]], records[hold[0] - 1:hold[1]]
+    air = runner.env.reward_names.index("feet_air_time")
+    n_ended = max(sum(r["metrics"]["done_count"] for r in ended), 1.0)
+    means = {k: sum(float(r[k]) for r in held) / len(held)
+             for k in ("mean_step_reward", "terrain_level", "mean_episode_length",
+                       "rew_feet_air_time")}
+    means["ended_episode_length"] = sum(r["metrics"]["ep_len_sum"] for r in ended) / n_ended
+    means["ended_feet_air_time"] = sum(r["episode_sums_done"][air] for r in ended) / n_ended
+    jax = {k: sum(float(r[k]) for r in jax_rows) / len(jax_rows)
+           for k in ("mean_step_reward", "terrain_level", "mean_episode_length",
+                     "rew_feet_air_time")}
+    jax["ended_episode_length"], jax["ended_feet_air_time"] = (jax["mean_episode_length"],
+                                                               jax["rew_feet_air_time"])
+    timed = records[1:] or records
+    iter_ms = sum(r["ms"] for r in timed) / len(timed)
+    waves = [int(records[i - 1]["metrics"]["done_count"]) for i in (100, 201) if i <= iters]
+    out = dict(launches=launches, start_iteration=start_it, adam_steps=adam, means=means,
+               iter_ms=iter_ms, env_steps_per_s=num_envs * steps / (iter_ms / 1e3),
+               ended=n_ended, falls=int(falls[0]), waves=waves,
+               seconds=time.perf_counter() - t0)
+    misses = [k for k, (lo, hi) in (bounds or {}).items() if not lo <= means[k] <= hi]
+    log(f"long run (b): {os.path.relpath(ckpt, ROOT)} grafted at {num_envs} envs, iteration "
+        f"{start_it} -> {runner.iteration_count}, Adam count +{adam}, {steps} launches in each "
+        f"of {iters} iterations; {iter_ms:.1f} ms per iteration ({out['env_steps_per_s']:.1f} "
+        f"env-steps/s, mean of {len(timed)} after the first); {n_ended:.0f} episodes ended in "
+        f"iterations {hold[0]}-{hold[1]}, {out['falls']} falls in the run, time-out waves of "
+        f"{waves} episodes in iterations 100 and 201; means over iterations {hold[0]}-{hold[1]} "
+        f"(JAX rows' mean, bound): " + "; ".join(
+            f"{k} {means[k]:.6g} ({jax[k]:.6g}, "
+            + ("[{:.6g}, {:.6g}])".format(*bounds[k]) if k in (bounds or {}) else "unchecked)")
+            for k in means) + f" ({out['seconds']:.1f} s)")
+    if misses:
+        raise AssertionError(f"the long run's means of {misses} are outside their bounds")
+    return out
+
+
+def phase_assets_long_run(device="cuda", root: str = PHASE11_ROOT) -> dict:
+    """Phase 11: (a) the asset pipeline, (b) the long training run."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    shares = []
+    out = {"assets": phase_assets(device, root, shares=shares)}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["long_run"] = phase_long_run(device, root)
+    out["bit_equal_share"] = min(shares)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+def assets_configurations(p11: dict) -> list:
+    """Phase 11's ``configurations`` entries of the kernels' JSON line."""
+    a, b = p11["assets"], p11["long_run"]
+    return [dict(phase=11, task="k1_dh_stand", spec="make_k1_urdf -> extract_model",
+                 num_envs=[a["k1_envs"]], bit_equal_share=p11["bit_equal_share"],
+                 max_abs_err=a["k1_worst"], launches_per_training_iteration=[a["k1_launches"]]),
+            dict(phase=11, task="t1_dh_stand", spec="spec_to_urdf -> extract_model",
+                 num_envs=[a["t1_envs"]], spec_gap=a["spec_gap"],
+                 max_abs_err_against_the_committed_spec=a["t1_worst"],
+                 bit_equal_share_against_the_committed_spec=a["t1_share"]),
+            dict(phase=11, task="t1_dh_stand", run="the 71k lineage, long",
+                 num_envs=[LINEAGE_ENVS], iterations=len(b["launches"]),
+                 launches_per_training_iteration=sorted(set(b["launches"])),
+                 iter_ms=b["iter_ms"], means=b["means"])]
+
+
 def main():
     smi, name = phase_device()
     import torch
@@ -1827,12 +2127,16 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     life = phase_lifecycle("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    p11 = phase_assets_long_run("cuda")
     log(f"done: build {build['seconds']:.1f} s, rollout {stats['env_steps_per_s']:.1f} "
         f"env-steps/s, training {train['env_steps_per_s']:.1f} env-steps/s (T1), "
         f"{tasks['k1_dh_stand']['env_steps_per_s']:.1f} (K1), "
         f"{tasks['t1_flat']['env_steps_per_s']:.1f} (t1_flat), "
         f"{par['env_steps_per_s']:.1f} (T1 over 2 ranks), the lineage at {LINEAGE_ENVS} envs "
-        f"{life['lineage']['env_steps_per_s']:.1f} on {smi}")
+        f"{life['lineage']['env_steps_per_s']:.1f} (3 iterations) and "
+        f"{p11['long_run']['env_steps_per_s']:.1f} ({LONG_ITERS} iterations) on {smi}")
     configs = [dict(task="t1_dh_stand", num_envs=[NUM_ENVS, TRAIN_ENVS],
                     bit_equal_share=min(shares + [train["bit_equal_share"]]),
                     max_abs_err=max(worst, train["worst"]),
@@ -1846,7 +2150,8 @@ def main():
     worst = max(c["max_abs_err"] for c in configs)
     configs.append(parallel_configuration(par))
     configs.append(lifecycle_configuration(life))
-    worst = max(worst, life["lineage"]["worst"])
+    configs += assets_configurations(p11)
+    worst = max(worst, life["lineage"]["worst"], p11["assets"]["k1_worst"])
     for line in result_lines(smi, name, torch.cuda.device_count(), launches, worst, times,
                              train["launches"], configs):
         print(line, flush=True)
@@ -1870,12 +2175,15 @@ def result_lines(smi, name, count, launches, worst, times, train_launches, confi
     contract's result line.  ``ms`` is at NUM_ENVS envs, ``ms_8192_envs`` at
     twice that; ``launches`` counts the rollout of phase 4,
     ``launches_per_training_iteration`` lists the count of each iteration of
-    phase 6; ``max_abs_err`` is the largest gap of phases 3, 6 and 7;
+    phase 6; ``max_abs_err`` is the largest gap of the kernel to its plain
+    version (phases 3, 6, 7, 10 and 11);
     ``configurations`` has, per task the kernel ran (phases 3-6 for
     ``t1_dh_stand``, phase 7 for ``k1_dh_stand`` and ``t1_flat``), its
     widths, the bit-equal share of its comparisons, their largest gap, its
     launches per training iteration and, for K1, the kernel's times; and
-    phase 8's entry (:func:`parallel_configuration`)."""
+    phase 8's entry (:func:`parallel_configuration`), phase 10's
+    (:func:`lifecycle_configuration`) and phase 11's three
+    (:func:`assets_configurations`)."""
     kernels = {"kernels": [{
         "name": "run_decimation", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

@@ -132,6 +132,68 @@ def test_slim_roundtrip(trained, tmp_path):
     assert int(nxt.env_state.common_step) == int(resumed.env_state.common_step) + steps
 
 
+def test_slim_resume_restarts_episodes_on_the_restored_tiles(trained, tmp_path, cut_registry):
+    """The cause of the terrain level's jump in the 71k lineage's first
+    episodes on the card (PERF.md §6) and its repair.  A slim
+    payload (here its levels set to row 0) grafted onto a fresh carry of
+    another seed restores the payload's origins but leaves each robot on the
+    fresh carry's tile: JAX's terrain curriculum, with every env done, moves
+    up exactly the envs whose robot stands on another row (8 m away), and
+    the port's update equals it.  ``restart_episodes`` (which
+    ``resume_migrate`` runs on a slim file) places the robots at the
+    restored origins, the five fields still the payload's: the same update
+    moves none up.  ``resume_migrate`` from a slim file starts every robot
+    within its tile's spawn square."""
+    from ti5_isaacgym_tpu.configs.t1_dh_stand import T1EnvCfg as JCfg
+    from ti5_isaacgym_tpu.envs import legged as jlegged
+    from ti5_isaacgym_tpu_torch.envs import legged as tlegged
+
+    runner, _, full = trained
+    other = _runner(seed=123)
+    env, fresh = other.env, other.init_carry()
+    payload = ck.slim(ck.load(full))
+    ttype = payload["env_state"]["terrain_type"]
+    level = torch.zeros_like(ttype)
+    payload["env_state"].update(terrain_level=level,
+                                env_origin=tlegged.origin_at(env.terrain_origins, level, ttype))
+    jcfg = JCfg()
+    jcfg = dataclasses.replace(jcfg, terrain=dataclasses.replace(
+        jcfg.terrain, num_rows=env.cfg.terrain.num_rows, num_cols=env.cfg.terrain.num_cols))
+
+    def levels_after_every_episode_ends(carry):
+        s = carry.env_state
+        args = [s.phys.base_pos[:, :2], s.env_origin, s.commands, s.terrain_level,
+                s.terrain_type, env.terrain_origins]
+        want, _ = jlegged.terrain_curriculum_update(
+            jcfg, jax.random.PRNGKey(0), jnp.ones(N, bool), *(jnp.asarray(a.numpy())
+                                                                for a in args))
+        got, _ = tlegged.terrain_curriculum_update(env.cfg, torch.Generator(),
+                                                   torch.ones(N, dtype=torch.bool), *args)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return got
+
+    off_tile = tlegged.origin_at(env.terrain_origins, fresh.env_state.terrain_level,
+                                 ttype)[:, 0] != payload["env_state"]["env_origin"][:, 0]
+    assert off_tile.any() and not off_tile.all()
+    grafted = ck.graft(fresh, payload)
+    assert torch.equal(levels_after_every_episode_ends(grafted), off_tile.to(torch.int32))
+    restarted = ck.restart_episodes(env, grafted)
+    assert not levels_after_every_episode_ends(restarted).any()
+    for k in ck.KEEP_ENV_FIELDS:
+        assert torch.equal(getattr(restarted.env_state, k), payload["env_state"][k]), k
+    assert bool((restarted.env_state.episode_length == 1).all())
+    assert restarted.obs is not grafted.obs
+
+    path = str(tmp_path / "model_1.pt")
+    ck.save(payload, path)
+    migrated, carry = resume_migrate.migrate(resume_migrate.get_args(
+        ["--ckpt", path, "--num_envs", str(N), "--seed", "123", "--device", "cpu"]))
+    s = carry.env_state
+    half = env.cfg.terrain.platform / 3.0
+    assert float((s.phys.base_pos[:, :2] - s.env_origin[:, :2]).abs().max()) <= half
+    assert torch.equal(s.env_origin, payload["env_state"]["env_origin"])
+
+
 def test_graft_refuses_another_env_count(trained):
     _, _, full = trained
     payload = ck.slim(ck.load(full))

@@ -261,16 +261,16 @@ def test_viewer_phase_runs_on_cpu(tmp_path):
     assert c["launches"] == 0 and c["env_steps_per_s"] > 0
 
 
-def _cut_t1(monkeypatch):
-    """Register ``t1_dh_stand`` cut to a 2x2 terrain, 4 steps per env and
-    the kernel path's plain version (its calls are counted on the CPU), with
+def _cut(monkeypatch, task: str = "t1_dh_stand"):
+    """Register ``task`` cut to a 2x2 terrain, 4 steps per env and the
+    kernel path's plain version (its calls are counted on the CPU), with
     every command counted as standing (the external force is applied to
     standing envs only, and 8 envs may have none)."""
     import dataclasses
 
     from ti5_isaacgym_tpu_torch.utils.registry import task_registry
 
-    cls, env_cfg, train_cfg = task_registry._get("t1_dh_stand")
+    cls, env_cfg, train_cfg = task_registry._get(task)
     env_cfg = dataclasses.replace(
         env_cfg,
         terrain=dataclasses.replace(env_cfg.terrain, num_rows=2, num_cols=2, border_size=2.0),
@@ -278,7 +278,7 @@ def _cut_t1(monkeypatch):
         commands=dataclasses.replace(env_cfg.commands, stand_com_threshold=1e9))
     train_cfg = dataclasses.replace(train_cfg, runner=dataclasses.replace(
         train_cfg.runner, num_steps_per_env=4))
-    monkeypatch.setitem(task_registry._tasks, "t1_dh_stand", (cls, env_cfg, train_cfg))
+    monkeypatch.setitem(task_registry._tasks, task, (cls, env_cfg, train_cfg))
     return cls, env_cfg, train_cfg
 
 
@@ -307,7 +307,7 @@ def test_lifecycle_phase_runs_on_cpu(tmp_path, monkeypatch, one_thread):
     from ti5_isaacgym_tpu_torch.algo.runner import OnPolicyRunner
     from ti5_isaacgym_tpu_torch.utils import checkpoint as ck
 
-    cls, env_cfg, train_cfg = _cut_t1(monkeypatch)
+    cls, env_cfg, train_cfg = _cut(monkeypatch)
     n = 8
     cfg = dataclasses.replace(env_cfg, env=dataclasses.replace(env_cfg.env, num_envs=n))
     fresh = OnPolicyRunner(cls(cfg, seed=0, device="cpu"), cfg, train_cfg,
@@ -350,3 +350,86 @@ def test_oracle_tolerances_are_the_stated_ones():
     assert set(chip_smoke.DROP_TOL) == set(drop["engine"])
     assert all(v > 0 for v in list(chip_smoke.ORACLE_TOL.values())
                + list(chip_smoke.DROP_TOL.values()))
+
+
+def test_asset_phase_runs_on_cpu(tmp_path, monkeypatch, one_thread):
+    """Phase 11 (a) at 8 envs on the cut tasks through the kernel path's
+    plain version: K1's extracted spec byte-equal to the committed one, one
+    iteration of 4 counted plain runs from it, the plain version against
+    itself after it; T1's round-tripped spec within 1e-8 of the committed
+    one, and the plain decimation with it within phase 3's tolerances of
+    the committed spec's; then the configuration entries."""
+    for task in ("k1_dh_stand", "t1_dh_stand"):
+        _cut(monkeypatch, task)
+    shares = []
+    a = chip_smoke.phase_assets("cpu", str(tmp_path), k1_envs=8, t1_envs=8, terrain_rows=2,
+                                settle_steps=3, shares=shares)
+    assert a["k1_launches"] == 4 and a["k1_worst"] == 0.0 and shares == [1.0, 1.0]
+    assert 0.0 < a["spec_gap"] <= 1e-8 and a["t1_share"] > 0.0
+    with open(tmp_path / "k1" / "k1.urdf") as f:
+        assert f.read().startswith('<?xml version="1.0"?>\n<robot name="k1">')
+    b = dict(launches=[4, 4], iter_ms=1.0, means={"mean_step_reward": 0.09})
+    entries = chip_smoke.assets_configurations(
+        {"assets": a, "long_run": b, "bit_equal_share": min(shares)})
+    assert [e["task"] for e in entries] == ["k1_dh_stand", "t1_dh_stand", "t1_dh_stand"]
+    assert entries[0]["launches_per_training_iteration"] == [4]
+    assert entries[2]["iterations"] == 2 and entries[2]["launches_per_training_iteration"] == [4]
+
+
+def test_long_run_phase_runs_on_cpu(tmp_path, monkeypatch, one_thread):
+    """Phase 11 (b) at 8 envs on the cut task, 3 iterations of 4 counted
+    plain runs from the lineage (its curriculum fields folded onto the 2x2
+    grid, as in the lifecycle test), the means of iterations 2-3 reported
+    unchecked (the bounds are for the card's 240 iterations at 4096 envs),
+    ``metrics.csv`` with the JAX columns."""
+    import dataclasses
+
+    from ti5_isaacgym_tpu_torch.algo.runner import OnPolicyRunner
+    from ti5_isaacgym_tpu_torch.utils import checkpoint as ck
+
+    cls, env_cfg, train_cfg = _cut(monkeypatch)
+    n = 8
+    cfg = dataclasses.replace(env_cfg, env=dataclasses.replace(env_cfg.env, num_envs=n))
+    fresh = OnPolicyRunner(cls(cfg, seed=0, device="cpu"), cfg, train_cfg,
+                           verbose=False).init_carry()
+    payload = ck.load(chip_smoke.LINEAGE)
+    env = payload["env_state"]
+    payload["env_state"] = dict(env, terrain_level=env["terrain_level"][:n] % 2,
+                                terrain_type=env["terrain_type"][:n] % 2,
+                                env_origin=fresh.env_state.env_origin)
+    ckpt = str(tmp_path / "model_71000.pt")
+    ck.save(payload, ckpt)
+    b = chip_smoke.phase_long_run("cpu", str(tmp_path), ckpt=ckpt, num_envs=n, iters=3,
+                                  hold=(2, 3), bounds=None)
+    assert b["launches"] == [4] * 3 and b["start_iteration"] == 71000
+    assert b["adam_steps"] == 3 * 8 and b["waves"] == [] and b["falls"] >= 0
+    assert set(b["means"]) == set(chip_smoke.LONG_RUN_BOUNDS)
+    assert all(np.isfinite(v) for v in b["means"].values())
+    with pytest.raises(AssertionError, match="outside their bounds"):
+        chip_smoke.phase_long_run("cpu", str(tmp_path / "again"), ckpt=ckpt, num_envs=n,
+                                  iters=1, hold=(1, 1),
+                                  bounds={"mean_step_reward": (1e9, 2e9)})
+
+
+def test_long_horizon_bounds_are_the_stated_ones():
+    """Phase 11 (b)'s bounds are those that ``tests/torch_long_run_bounds.py``
+    computes from the lineage's committed metric rows, for the run it
+    models; the rows' own steady state lies inside the bounds of the four
+    quantities that do not depend on when the episodes started, and outside
+    the model's range of the CSV's air-time term (the graft's waves)."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_long_run_bounds as lrb
+
+    got = lrb.bounds()
+    assert set(got) == set(chip_smoke.LONG_RUN_BOUNDS)
+    for k, (lo, hi) in got.items():
+        assert chip_smoke.LONG_RUN_BOUNDS[k] == pytest.approx((lo, hi), rel=1e-12), k
+    assert (lrb.ITERS, lrb.HOLD, lrb.NUM_ENVS) == (chip_smoke.LONG_ITERS, chip_smoke.LONG_HOLD,
+                                                    chip_smoke.LINEAGE_ENVS)
+    rows = lrb.row_stats()
+    for k, col in (("mean_step_reward", "mean_step_reward"), ("terrain_level", "terrain_level"),
+                   ("ended_episode_length", "mean_episode_length"),
+                   ("ended_feet_air_time", "rew_feet_air_time")):
+        lo, hi = got[k]
+        assert lo < rows[col][0] < hi and hi - lo == pytest.approx(8 * rows[col][1])
+    assert rows["rew_feet_air_time"][0] > got["rew_feet_air_time"][1]

@@ -35,7 +35,9 @@ for m in ("parallel.trainer", "export.mjcf", "scripts.sim2sim", "utils.debug_viz
           "utils.teleop", "utils.render", "utils.gait_design", "utils.checkpoint",
           "scripts.slim_checkpoint", "scripts.reheat_std", "scripts.resume_migrate",
           "scripts.sync_checkpoint", "scripts.resume_round", "scripts.train_walk",
-          "scripts.seed_probe", "scripts.contact_stats", "scripts.eval_report"):
+          "scripts.seed_probe", "scripts.contact_stats", "scripts.eval_report",
+          "scripts.extract_model", "scripts.spec_to_urdf", "scripts.make_k1_urdf",
+          "scripts.restore_checkpoint", "scripts.final_eval"):
     assert "ti5_isaacgym_tpu_torch." + m in mods, mods
 print(len(mods))
 """

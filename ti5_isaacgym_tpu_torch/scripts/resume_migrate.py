@@ -9,8 +9,11 @@ Builds ``--task`` at ``--num_envs`` and a runner seeded from ``--seed`` (the
 task's training seed by default), overlays every field the checkpoint holds
 onto the runner's fresh carry (``utils.checkpoint.graft``: the train state,
 the curriculum fields, the run's generator where the checkpoint has one;
-the rest stays fresh; a field of another shape raises), continues the
-iteration count from the checkpoint's and trains ``--iters`` iterations,
+the rest stays fresh; a field of another shape raises), restarts the
+episodes on the restored terrain tiles when the checkpoint is slim
+(``utils.checkpoint.restart_episodes``; JAX's tool leaves the robots on the
+fresh carry's tiles), continues the iteration count from the checkpoint's
+and trains ``--iters`` iterations,
 writing ``model_<it>.pt`` into ``--log_dir`` when one is given.  Runs on
 ``cuda`` unless ``--device cpu``; without a card it raises.
 """
@@ -19,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from ..algo.runner import OnPolicyRunner
-from ..utils.checkpoint import graft, load
+from ..utils.checkpoint import graft, is_slim, load, restart_episodes
 from ..utils.config import update_cfg_from_args
 from ..utils.device import resolve_device
 from ..utils.registry import task_registry
@@ -42,7 +45,8 @@ def get_args(argv=None):
 
 def migrate(args):
     """(runner, carry): the runner of ``args`` and its fresh carry with the
-    checkpoint grafted on; the runner's iteration count is the
+    checkpoint grafted on (and, from a slim checkpoint, its episodes
+    restarted on the restored tiles); the runner's iteration count is the
     checkpoint's."""
     dev = resolve_device(args.device)
     env, env_cfg = task_registry.make_env(args.task, args, device=dev)
@@ -50,6 +54,8 @@ def migrate(args):
     runner = OnPolicyRunner(env, env_cfg, train_cfg, log_dir=args.log_dir)
     saved = load(args.ckpt)
     carry = graft(runner.init_carry(), saved)
+    if is_slim(saved):
+        carry = restart_episodes(env, carry)
     runner.iteration_count = int(saved["iteration"])
     print(f"migrated resume from {args.ckpt} at iteration {runner.iteration_count}"
           + ("" if "rng" in saved else f" (no generator state in it: the run's is seeded "

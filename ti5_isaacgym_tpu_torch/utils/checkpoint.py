@@ -15,7 +15,9 @@ current episodes.
 
 Slim payloads are what ``checkpoints_torch/<task>/<run>/model_<it>.pt``
 holds (``scripts/sync_checkpoint.py``); ``train --resume`` refuses them
-(:func:`refuse_slim`), ``scripts/resume_migrate.py`` grafts them.
+(:func:`refuse_slim`), ``scripts/resume_migrate.py`` grafts them and
+restarts the episodes on the restored terrain tiles
+(:func:`restart_episodes`).
 """
 from __future__ import annotations
 
@@ -102,6 +104,27 @@ def graft(carry, saved: Dict[str, Any]):
         rng=_overlay(carry.rng, saved["rng"], "rng") if "rng" in saved else carry.rng,
         **{k: _overlay(getattr(carry, k), saved[k], k)
            for k in ("cur_reward_sum", "cur_ep_len") if k in saved})
+
+
+def restart_episodes(env, carry):
+    """Restart every episode of a carry that a slim payload was grafted onto
+    (:func:`graft`) at the curriculum fields the payload restored.
+
+    The fresh carry's reset put each robot on the fresh carry's terrain tile
+    and drew its commands from the fresh command range; the graft restores
+    the payload's levels, types, origins and range but leaves the robots
+    where they stand.  The first terrain update would then measure each
+    walk from another tile's origin, and most envs would move up a level at
+    once, as they do after JAX's ``tools/resume_migrate.py`` (without this
+    reset, the 71k lineage grafted at 4096 envs read a mean level of 5.875
+    over its iterations 141-240 against the file's 5.155, on an NVIDIA
+    H100).  This reset (all envs, no curriculum step) places the robots at
+    the restored origins with commands from the restored range; the common
+    step stays the payload's, since the reset's zero-action step is no step
+    of the run."""
+    state, obs, priv = env.reset(carry.env_state)
+    state = state.replace(common_step=carry.env_state.common_step)
+    return carry._replace(env_state=state, obs=obs, priv_obs=priv)
 
 
 def reheat_std(payload: Dict[str, Any], std: float) -> Dict[str, Any]:
